@@ -21,11 +21,13 @@
 // runs of 40 floats along an image row.
 //
 // What bounds it on this card: at 752x480 with 1000 features a frame
-// writes 2 x 1248 x 1600 x 4 B ~= 16 MB of patches in 8 launches (one per
+// writes 2 x 1247 x 1600 x 4 B ~= 16 MB of patches in 8 launches (one per
 // level), about 5 us of HBM bandwidth at 3.35 TB/s, so each launch is
-// dominated by launch latency, not by bytes. A later change goes to one
-// launch for all 8 levels and then fuses the IC moments and the BRIEF
-// compares into the gather, so that no patch tensor reaches HBM at all.
+// dominated by launch latency, not by bytes. The extractor no longer
+// takes this route: orb_describe.cu does all 8 levels in one launch with
+// the IC moments and the BRIEF compares fused in, so that no patch tensor
+// reaches HBM at all. This kernel stays as the counterpart of the
+// reference's extract_patches and extract_patches_dual.
 
 #include <cuda_runtime.h>
 

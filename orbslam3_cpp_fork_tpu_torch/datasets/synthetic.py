@@ -248,13 +248,14 @@ def seed_local_map(
     capacity: int,
     kf_every: int,
     orb_params=None,
-    device="cpu",
+    device="cuda",
     min_sep: float = 0.05,
 ) -> dict:
     """A localization map built from rendered keyframes with exact depth.
 
     Every `kf_every`-th pose of (Rs_wc, ts_wc) is a keyframe: its frame is
-    rendered, the port's ORB runs on it (on `device`), and every valid
+    rendered, the port's ORB runs on it (on `device`: the card unless the
+    caller asks for the CPU), and every valid
     feature is back-projected with `render_depth` at its pixel. A point
     within `min_sep` of an existing landmark is skipped; the map stops at
     `capacity`. Each landmark keeps the feature's packed descriptor, the
@@ -267,8 +268,10 @@ def seed_local_map(
     """
     import torch
 
+    from ..device import get_device
     from ..ops import orb
 
+    device = get_device(device)
     p = orb_params if orb_params is not None else orb.OrbParams()
     fx, fy, cx, cy = (float(v) for v in (scene.K[0, 0], scene.K[1, 1], scene.K[0, 2], scene.K[1, 2]))
     pos = np.zeros((capacity, 3), np.float32)

@@ -14,13 +14,14 @@ from __future__ import annotations
 import torch
 
 
-def get_device(name: str | torch.device = "cpu") -> torch.device:
-    """Resolve an explicit device; raise if CUDA is asked for and absent.
+def get_device(name: str | torch.device = "cuda") -> torch.device:
+    """Resolve a device; raise if CUDA is meant and absent.
 
-    There is no automatic choice: callers name the device they mean, and a
-    request for `cuda` on a machine without a card is an error rather
-    than a silent CPU run. A bare "cuda" resolves to the current card's
-    index.
+    The package runs on the card unless the caller asks for the CPU: with
+    no argument this is the current CUDA card, and on a machine without
+    one that is an error rather than a silent CPU run. Callers that mean
+    the CPU (the parity tests) say "cpu". A bare "cuda" resolves to the
+    current card's index.
     """
     dev = torch.device(name)
     if dev.type not in ("cpu", "cuda"):

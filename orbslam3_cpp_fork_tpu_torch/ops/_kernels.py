@@ -10,6 +10,7 @@ never loaded. Nothing here runs at import time: machines without nvcc
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import hashlib
 import os
@@ -66,6 +67,14 @@ def build(name: str) -> Path:
     return so
 
 
+def build_all() -> list[str]:
+    """Compile every csrc/*.cu, one nvcc each, all started together."""
+    names = sorted(src.stem for src in CSRC.glob("*.cu"))
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        list(pool.map(build, names))
+    return names
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for csrc/<name>.cu, built on first use."""
     lib = _libs.get(name)
@@ -79,5 +88,32 @@ def patch_gather_fn():
     """ctypes handle of `patch_gather` (csrc/patch_gather.cu)."""
     fn = load("patch_gather").patch_gather
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+MAX_LEVELS = 8
+
+
+class LevelTable(ctypes.Structure):
+    """Per-level pointers, shapes and keypoint start offsets of one
+    `orb_describe` launch; mirrors `struct LevelTable` of
+    csrc/orb_describe.cu field for field. It is a launch argument, so
+    nothing is uploaded when the level buffers change from frame to frame."""
+
+    _fields_ = [
+        ("raw", ctypes.c_void_p * MAX_LEVELS),
+        ("blur", ctypes.c_void_p * MAX_LEVELS),
+        ("h", ctypes.c_int * MAX_LEVELS),
+        ("w", ctypes.c_int * MAX_LEVELS),
+        ("start", ctypes.c_int * (MAX_LEVELS + 1)),
+        ("n_levels", ctypes.c_int),
+    ]
+
+
+def orb_describe_fn():
+    """ctypes handle of `orb_describe` (csrc/orb_describe.cu)."""
+    fn = load("orb_describe").orb_describe
+    fn.argtypes = [ctypes.POINTER(LevelTable)] + [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn

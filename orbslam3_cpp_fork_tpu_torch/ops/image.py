@@ -75,7 +75,7 @@ def build_pyramid(img: torch.Tensor, n_levels: int = N_LEVELS, scale: float = SC
 
 
 @functools.lru_cache(maxsize=None)
-def _gaussian_kernel1d(ksize: int, sigma: float, device=torch.device("cpu")) -> torch.Tensor:
+def _gaussian_kernel1d(ksize: int, sigma: float, device: torch.device) -> torch.Tensor:
     """Normalized f32 taps, computed on the CPU so every device uses the
     same bits (they equal the reference's), uploaded once per device."""
     r = (ksize - 1) / 2

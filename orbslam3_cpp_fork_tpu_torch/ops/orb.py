@@ -2,9 +2,10 @@
 
 Per pyramid level: the threshold-free FAST-9/16 score, 3x3 non-maximum
 suppression, the 20 -> 7 threshold fallback, a spatially balanced per-cell
-top-8 selection, then one patch gather (the CUDA kernel, see
-ops/patches.py) feeding the IC angle and the 30-bin steered BRIEF. Levels
-are merged into a fixed-capacity feature set by one stable ranked sort.
+top-8 selection; then, for all levels at once, the IC angle and the 30-bin
+steered BRIEF (`patches.describe_keypoints`: one fused CUDA kernel launch
+per image, see ops/patches.py). Levels are merged into a fixed-capacity
+feature set by one stable ranked sort.
 
 Ties follow the reference exactly: `argmax` takes the first index and
 every ranking sort is stable. The per-frame path issues no host sync.
@@ -219,28 +220,27 @@ def extract_orb(img: torch.Tensor, p: OrbParams = OrbParams()) -> Features:
     caps = level_caps(p)
     dev = img.device
 
-    per_level = []
+    per_level, blurred, xys = [], [], []
     for l, lvl in enumerate(levels):
         xy, score, valid = level_keypoints(lvl, caps[l], p)
-        blurred = gaussian_blur7(lvl)
-        praw, pblur = patches_mod.extract_patches_dual(lvl.contiguous(), blurred.contiguous(), xy)
-        angle = patches_mod.ic_angle_from_patches(praw)
-        bits8 = patches_mod.brief_from_patches(pblur, angle)
+        blurred.append(gaussian_blur7(lvl).contiguous())
+        xys.append(xy)
         per_level.append(
             dict(
                 xy=xy.to(torch.float32) * (p.scale_factor**l),
                 level=torch.full((caps[l],), l, dtype=torch.int32, device=dev),
-                angle=angle,
                 score=torch.where(valid, score, torch.zeros_like(score)),
-                desc=pack_bits(bits8),
-                desc_i8=bits8,
                 valid=valid,
                 rank=torch.arange(caps[l], dtype=torch.int32, device=dev),
                 budget=torch.full((caps[l],), budgets[l], dtype=torch.int32, device=dev),
             )
         )
-
     cat = {k: torch.cat([d[k] for d in per_level]) for k in per_level[0]}
+    # Orientations and descriptors of all levels at once (one kernel launch
+    # on CUDA tensors, no patch tensor in device memory).
+    cat["angle"], cat["desc_i8"], cat["desc"] = patches_mod.describe_keypoints(
+        [lvl.contiguous() for lvl in levels], blurred, xys
+    )
     # Global trim to n_features: in-budget slots first (by score), then
     # slack slots by score.
     in_budget = (cat["rank"] < cat["budget"]) & cat["valid"]

@@ -7,6 +7,16 @@ CUDA tensors and its plain PyTorch version (clamped index grids, advanced
 indexing) on CPU tensors. The two are bitwise equal: both only copy f32
 values.
 
+`describe_keypoints` is what the extractor calls: keypoints of all pyramid
+levels -> angles, BRIEF bits and packed words. On CUDA tensors it is one
+launch of the fused kernel `csrc/orb_describe.cu`, which keeps every
+window inside its block, so no (N, 40, 40) tensor reaches device memory;
+on CPU tensors it is `describe_keypoints_plain`, the per-level gather ->
+`ic_angle_from_patches` -> `brief_from_patches` -> `pack_bits` chain. The
+kernel sums the moments in float64 and rounds once, the plain version is
+an f32 matmul: angles agree to ~1e-6 rad, and bits are equal wherever
+both land in the same 12-degree bin.
+
 BRIEF bit rule. The reference computes the 256 steered comparisons as a
 bf16 matmul of the flattened patch against a {-1, 0, +1} table with one
 -1 (point a) and one +1 (point b) per column, accumulated in f32. The sum
@@ -34,6 +44,10 @@ N_ANGLE_BINS = 30  # 12-degree bins, as in the ORB paper's pattern LUTs
 # only; the plain CPU version does not count).
 launches = 0
 _gather_fn = None
+# Number of fused describe-kernel launches this process made (host side).
+# The kernel also counts on the card: see `describe_counter`.
+describe_launches = 0
+_describe_fn = None
 
 
 def _check_gather_args(imgs: list[torch.Tensor], xy: torch.Tensor) -> None:
@@ -160,7 +174,7 @@ def brief_from_patches(patches: torch.Tensor, angle: torch.Tensor) -> torch.Tens
     n = patches.shape[0]
     ia, ib = _device_tables(patches.device)[:2]
     bins = quantize_angle(angle).long()
-    flat = patches.reshape(n, -1).to(torch.bfloat16)
+    flat = patches.reshape(n, PATCH_ROWS * PATCH_COLS).to(torch.bfloat16)
     va = torch.gather(flat, 1, ia[bins])
     vb = torch.gather(flat, 1, ib[bins])
     return (vb > va).to(torch.int8)
@@ -184,14 +198,24 @@ def _moment_weights() -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=None)
-def _device_tables(device: torch.device) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """BRIEF a/b indices and moment weights, uploaded once per device (no
-    host-to-device copy on the per-frame path)."""
+def _brief_pair_table() -> np.ndarray:
+    """(N_ANGLE_BINS, 256, 2) uint16 window indices (a, b) of every rotated
+    pair: the table the fused kernel reads."""
+    return np.stack(_brief_pair_index(), axis=-1).astype(np.uint16)
+
+
+@functools.lru_cache(maxsize=None)
+def _device_tables(device: torch.device) -> tuple[torch.Tensor, ...]:
+    """BRIEF a/b indices, moment weights and the fused kernel's pair table,
+    uploaded once per device (no host-to-device copy on the per-frame
+    path). The pair table travels as int16 (same bits: every index is below
+    1600) because not every PyTorch build moves uint16 tensors."""
     ia, ib = _brief_pair_index()
     return (
         torch.from_numpy(ia).to(device),
         torch.from_numpy(ib).to(device),
         torch.from_numpy(_moment_weights()).to(device),
+        torch.from_numpy(_brief_pair_table().view(np.int16)).to(device),
     )
 
 
@@ -199,5 +223,103 @@ def ic_angle_from_patches(patches: torch.Tensor) -> torch.Tensor:
     """(N,40,40) raw-image patches -> (N,) IC_Angle orientations."""
     n = patches.shape[0]
     w = _device_tables(patches.device)[2]
-    m = patches.reshape(n, -1) @ w  # (N,2) = (m10, m01)
+    m = patches.reshape(n, PATCH_ROWS * PATCH_COLS) @ w  # (N,2) = (m10, m01)
     return torch.atan2(m[:, 1], m[:, 0])
+
+
+def _describe_per_level(levels, blurred, xys, gather_dual):
+    """gather -> IC angle -> BRIEF -> packed words, level by level."""
+    from .orb import pack_bits
+
+    outs = []
+    for lvl, blur, xy in zip(levels, blurred, xys):
+        praw, pblur = gather_dual(lvl, blur, xy)
+        angle = ic_angle_from_patches(praw)
+        bits = brief_from_patches(pblur, angle)
+        outs.append((angle, bits, pack_bits(bits)))
+    return tuple(torch.cat(c) for c in zip(*outs))
+
+
+def describe_keypoints_plain(levels, blurred, xys):
+    """Plain PyTorch version of `describe_keypoints` (any device)."""
+    return _describe_per_level(
+        levels, blurred, xys, lambda a, b, xy: (_gather_plain(a, xy), _gather_plain(b, xy))
+    )
+
+
+def describe_keypoints_per_level(levels, blurred, xys):
+    """The same function by the per-level route: one patch-gather launch
+    per level (`extract_patches_dual`), then the PyTorch angle, BRIEF and
+    packing ops on the gathered patches."""
+    return _describe_per_level(levels, blurred, xys, extract_patches_dual)
+
+
+@functools.lru_cache(maxsize=None)
+def describe_counter(device: torch.device) -> torch.Tensor:
+    """The card's own count of fused-kernel launches, a (1,) int64 tensor on
+    `device`: the kernel's first thread adds one, so launches replayed from
+    a CUDA graph count too. Reading it (`int(...)`) synchronises; `zero_()`
+    resets it."""
+    return torch.zeros(1, dtype=torch.int64, device=device)
+
+
+def _describe_cuda(levels, blurred, xys):
+    """Launch csrc/orb_describe.cu once for all levels."""
+    global describe_launches, _describe_fn
+    if _describe_fn is None:
+        _describe_fn = _kernels.orb_describe_fn()
+    dev = xys[0].device
+    xy = torch.cat(xys)
+    m = xy.shape[0]
+    angle = torch.empty((m,), dtype=torch.float32, device=dev)
+    bits = torch.empty((m, 256), dtype=torch.int8, device=dev)
+    words = torch.empty((m, 8), dtype=torch.int64, device=dev)
+    if m == 0:
+        return angle, bits, words
+    table = _kernels.LevelTable()
+    table.n_levels = len(levels)
+    start = 0
+    for l, (lvl, blur, kp) in enumerate(zip(levels, blurred, xys)):
+        table.raw[l], table.blur[l] = lvl.data_ptr(), blur.data_ptr()
+        table.h[l], table.w[l] = lvl.shape
+        table.start[l] = start
+        start += kp.shape[0]
+    table.start[len(levels)] = start
+    pairs = _device_tables(dev)[3]
+    # The launch is asynchronous; `xy` and the caller's level buffers may be
+    # released before it runs, which is safe because the caching allocator
+    # reuses a block only for work queued later on the same stream.
+    with torch.cuda.device(dev):
+        err = _describe_fn(
+            table, xy.data_ptr(), pairs.data_ptr(), angle.data_ptr(), bits.data_ptr(), words.data_ptr(),
+            describe_counter(dev).data_ptr(), m, torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"orb_describe launch failed: cudaError {err}")
+    describe_launches += 1
+    return angle, bits, words
+
+
+def describe_keypoints(
+    levels: list[torch.Tensor], blurred: list[torch.Tensor], xys: list[torch.Tensor]
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Keypoints of every pyramid level -> orientations and descriptors.
+
+    levels[l], blurred[l]: the raw level and its 7x7-blurred copy, f32
+    (h_l, w_l); xys[l]: that level's keypoints, int32 (n_l, 2) as (x, y).
+    Returns, with M = sum(n_l) and the levels concatenated in order:
+    angle (M,) f32, the IC angle of the raw level; desc_i8 (M, 256) int8,
+    the steered BRIEF bits of the blurred level; desc (M, 8) int64, the
+    bits packed (bit j of word i is pair 32 i + j). Reads are edge-clamped,
+    the keypoint clipped into the image first. One kernel launch on CUDA
+    tensors; the plain version on CPU tensors.
+    """
+    if not (0 < len(levels) == len(blurred) == len(xys) <= _kernels.MAX_LEVELS):
+        raise ValueError(f"need 1..{_kernels.MAX_LEVELS} levels, as many blurred copies and keypoint sets")
+    for lvl, blur, xy in zip(levels, blurred, xys):
+        _check_gather_args([lvl, blur], xy)
+        if xy.device != xys[0].device:
+            raise ValueError("all levels must lie on one device")
+    if xys[0].device.type == "cuda":
+        return _describe_cuda(levels, blurred, xys)
+    return describe_keypoints_plain(levels, blurred, xys)

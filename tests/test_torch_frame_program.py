@@ -32,7 +32,8 @@ def seq():
     scene = synthetic.make_ring_scene(seed=7, n_points=1200, size_range=(9, 15), width=W, height=H)
     Rs, ts = synthetic.circle_trajectory(n_frames=300, radius=2.5, total_angle=2.3 * np.pi)
     Rs, ts = Rs[:6], ts[:6]
-    snap = synthetic.seed_local_map(scene, Rs, ts, capacity=L, kf_every=2, orb_params=OrbParams(n_features=NF))
+    snap = synthetic.seed_local_map(scene, Rs, ts, capacity=L, kf_every=2, orb_params=OrbParams(n_features=NF),
+                                    device="cpu")
     frames = [synthetic.to_u8(synthetic.render_frame(scene, Rs[i], ts[i])) for i in range(T)]
     return scene, Rs, ts, snap, frames
 

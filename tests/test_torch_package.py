@@ -1,6 +1,7 @@
 """Package-level guarantees of the PyTorch port: it never imports JAX (nor
-the JAX package), picks no device on its own, and its chip smoke refuses to
-run without a CUDA card or outside a checkout."""
+the JAX package), runs on the card unless asked for the CPU (and never falls
+back to the CPU on its own), and its chip smoke refuses to run without a CUDA
+card or outside a checkout."""
 
 import os
 import subprocess
@@ -62,3 +63,21 @@ def test_get_device_is_explicit():
             get_device("cuda")
     with pytest.raises(ValueError):
         get_device("meta")
+
+
+def test_default_device_is_the_card():
+    """With no argument the entry points mean the card: here, without one,
+    they raise instead of running on the CPU."""
+    import numpy as np
+
+    from orbslam3_cpp_fork_tpu_torch.datasets import synthetic
+
+    if torch.cuda.is_available():
+        assert get_device().type == "cuda"
+        return
+    with pytest.raises(RuntimeError):
+        get_device()
+    scene = synthetic.make_ring_scene(seed=7, n_points=50, size_range=(9, 15), width=80, height=60)
+    Rs, ts = synthetic.circle_trajectory(n_frames=4, radius=2.5, total_angle=0.1)
+    with pytest.raises(RuntimeError):
+        synthetic.seed_local_map(scene, Rs, ts, capacity=16, kf_every=2)
