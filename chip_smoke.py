@@ -27,10 +27,21 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
   5. per-level path - the describe stage by the earlier route (one
                patch-gather launch per level, then PyTorch ops) over the
                first frames, its launches counted and its output held against
-               the fused kernel's.
+               the fused kernel's;
+  6. slam    - monocular SLAM from a cold start on the same ring frames:
+               MonoTracker (synchronous mapping) on the card with no seed
+               map and no ground-truth pose: two-view initialization, fused
+               tracking, keyframe insertion, triangulation, fusion, culling
+               and window BA. Gates: the map initializes within the first
+               40 frames, every later frame is tracked, >= 8 keyframes and
+               >= 1000 landmarks at the end, a finite map, one describe
+               launch per frame counted on the card, scale-aligned ATE
+               within the bound. The phase runs twice and says whether both
+               runs gave the same trajectory bit for bit.
 `--profile N` adds a torch.profiler pass over N frames (kernel launches and
-device time per frame, host time per stage), `--compare-routes` a timing of
-the tracker with the describe stage by either route; both are off by default.
+device time per frame, host time per stage) and over the SLAM phase's
+tracked frames and mapping steps, `--compare-routes` a timing of the tracker
+with the describe stage by either route; both are off by default.
 The last line of standard output is the JSON device record.
 """
 
@@ -62,6 +73,16 @@ TOL_ANGLE = 1e-5  # rad, fused kernel (f64 moments) vs plain (f32 matmul)
 # Moment vectors shorter than this (and not exactly zero) make the plain
 # version's f32 angle ill-conditioned: its sums are off by a few tenths.
 MIN_MOMENT = 5e4
+# SLAM phase. Scale-aligned ATE RMSE (m) over the 120 frames on a CPU: the
+# larger of the JAX reference's MonoTracker (synchronous, no loop closing:
+# 0.023831216539063824) and this port's (0.02424541729702135); the card must
+# not be worse than that plus TOL_SLAM_ATE_M. How both were measured: PERF.md.
+SLAM_ATE_M = 0.02424541729702135
+TOL_SLAM_ATE_M = 0.010
+SLAM_INIT_BY = 40  # the map must exist after this many frames
+SLAM_MIN_KFS = 8
+SLAM_MIN_LMS = 1000
+SLAM_PROFILE_FRAMES = 40  # frames of the SLAM phase that --profile traces
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOPS = 67e12  # H100 SXM data sheet, float32 outside the tensor cores
 
@@ -433,6 +454,178 @@ def phase_per_level_path(dev, frames, orb_params):
     return launches
 
 
+def make_slam_tracker(dev, scene, orb_params):
+    from orbslam3_cpp_fork_tpu_torch import convert
+    from orbslam3_cpp_fork_tpu_torch.runtime.tracker import MonoTracker, TrackerConfig
+
+    K = scene.K
+    cfg = TrackerConfig(
+        camera=convert.camera_from_numpy(K[0, 0], K[1, 1], K[0, 2], K[1, 2]),
+        width=scene.width, height=scene.height, orb=orb_params,
+        async_mapping=False, enable_loop_closing=False,
+    )
+    return MonoTracker(cfg, dev)
+
+
+def run_slam(dev, scene, frames, orb_params):
+    """One cold-start run of MonoTracker over `frames` on the card. Returns
+    the tracker, per-frame records and the describe-launch counts."""
+    import torch
+
+    from orbslam3_cpp_fork_tpu_torch import device as device_mod
+    from orbslam3_cpp_fork_tpu_torch.ops import patches
+
+    trk = make_slam_tracker(dev, scene, orb_params)
+    counter = patches.describe_counter(dev)
+    counter.zero_()
+    patches.describe_launches = 0
+    rec = []
+    for i, f in enumerate(frames):
+        kfs0, fetch0 = trk.n_kf_inserted, device_mod.n_fetches
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                T = trk.track(f, i * 0.05)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        rec.append(dict(
+            ms=(time.perf_counter() - t1) * 1e3, ok=T is not None, state=trk.state.name,
+            kf=trk.n_kf_inserted > kfs0 and kfs0 > 0, fetches=device_mod.n_fetches - fetch0,
+            syncs=sum("called a synchronizing" in str(w.message) for w in caught),
+        ))
+    return trk, rec, int(counter), patches.describe_launches
+
+
+def phase_slam(dev, scene, ts, frames, orb_params, gate_ate):
+    import numpy as np
+
+    from orbslam3_cpp_fork_tpu_torch import native
+    from orbslam3_cpp_fork_tpu_torch.runtime.tracker import TrackState
+    from orbslam3_cpp_fork_tpu_torch.utils.evaluation import ate_rmse
+
+    n = len(frames)
+    log(f"slam: mapgraph backend: {native.backend()}")
+    trk, rec, launches, host_launches = run_slam(dev, scene, frames, orb_params)
+    m = trk.map
+    first_ok = next((i for i, r in enumerate(rec) if r["ok"]), None)
+    n_ok = sum(r["ok"] for r in rec)
+    log(f"slam: map initialized at frame {first_ok}; tracked {n_ok}/{n} frames; state {trk.state.name}; "
+        f"fused path declined {trk.n_fused_declined}; keyframes {m.n_keyframes()} ({trk.n_kf_inserted} inserted); "
+        f"landmarks {m.n_landmarks()}")
+    if first_ok is None or first_ok >= min(SLAM_INIT_BY, n):
+        fail(f"slam: the map did not initialize within the first {min(SLAM_INIT_BY, n)} frames")
+    lost = [i for i, r in enumerate(rec) if i > first_ok and not r["ok"]]
+    if lost or trk.state != TrackState.OK or trk.n_fused_declined:
+        fail(f"slam: frames {lost[:10]} not tracked after initialization; state {trk.state.name}; "
+             f"{trk.n_fused_declined} frames declined by the fused path")
+    if launches != n or host_launches != n:
+        fail(f"slam: orb_describe ran {launches} times on the card ({host_launches} by the wrapper) for {n} frames")
+    kv, lv = m.kf_valid, m.lm_valid
+    if not (np.isfinite(m.kf_R[kv]).all() and np.isfinite(m.kf_t[kv]).all() and np.isfinite(m.lm_pos[lv]).all()):
+        fail("slam: non-finite map poses or points")
+
+    track = [r for i, r in enumerate(rec) if i > first_ok and not r["kf"]]
+    steps = [r for r in rec if r["kf"]]
+    ms = np.asarray([r["ms"] for r in track])
+    log(f"slam: per tracked frame without a keyframe ({len(track)}): median {np.median(ms):.3f} ms, "
+        f"p99 {np.percentile(ms, 99):.3f} ms; result fetches per frame {np.mean([r['fetches'] for r in track]):.2f}, "
+        f"synchronizing calls per frame (uploads included) {np.mean([r['syncs'] for r in track]):.1f}")
+    if steps:
+        ms_kf = np.asarray([r["ms"] for r in steps])
+        log(f"slam: per keyframe frame ({len(steps)}): median {np.median(ms_kf):.3f} ms, max {ms_kf.max():.3f} ms; "
+            f"result fetches {np.mean([r['fetches'] for r in steps]):.2f}, synchronizing calls "
+            f"{np.mean([r['syncs'] for r in steps]):.1f} (track + mapping step)")
+    summ = trk.timers.summary()
+    split = ", ".join(
+        f"{k[4:]} {summ[k]['mean_ms']:.2f}" for k in
+        ("map_triangulate_dispatch", "map_triangulate", "map_fuse_dispatch", "map_fuse", "map_stats",
+         "map_cull_lm", "map_local_ba_dispatch", "map_local_ba", "map_cull_kf") if k in summ
+    )
+    if "map_step" in summ:
+        log(f"slam: mapping step mean {summ['map_step']['mean_ms']:.2f} ms over {summ['map_step']['count']} steps "
+            f"(host clock; a stage's device work is paid where its result is fetched): {split}")
+    log(f"slam: orb_describe launches counted on the card {launches}, by the wrapper {host_launches} (= {n} frames)")
+
+    stamps = np.arange(n) * 0.05
+    ts_est, Twc = trk.export_trajectory()
+    if not np.isfinite(Twc).all() or len(ts_est) < n_ok - 1:
+        fail(f"slam: exported trajectory has {len(ts_est)} poses for {n_ok} tracked frames, or is not finite")
+    ate = ate_rmse(ts_est, Twc[:, :3, 3], stamps, ts)
+    log(f"slam: scale-aligned ATE RMSE {ate.rmse_scaled:.6f} m over {ate.n_pairs} frames (Sim(3) alignment, scale "
+        f"{ate.scale:.4f}); bound {SLAM_ATE_M} + {TOL_SLAM_ATE_M} m")
+
+    # A second cold start on the same frames: is the run reproducible bit for bit?
+    trk2, rec2, launches2, _ = run_slam(dev, scene, frames, orb_params)
+    _, Twc2 = trk2.export_trajectory()
+    same = Twc.shape == Twc2.shape and np.array_equal(Twc, Twc2)
+    diff = float(np.abs(Twc[:, :3, 3] - Twc2[:, :3, 3]).max()) if Twc.shape == Twc2.shape else float("nan")
+    ms2 = np.asarray([r["ms"] for i, r in enumerate(rec2) if r["ok"] and not r["kf"]])
+    log(f"slam: second run: trajectory bitwise equal to the first: {same} (max position diff {diff:.3e}); "
+        f"keyframes {trk2.map.n_keyframes()}, landmarks {trk2.map.n_landmarks()}, median {np.median(ms2):.3f} ms "
+        f"per tracked frame, describe launches {launches2}")
+
+    if m.n_keyframes() < SLAM_MIN_KFS or m.n_landmarks() < SLAM_MIN_LMS:
+        if gate_ate:
+            fail(f"slam: {m.n_keyframes()} keyframes (>= {SLAM_MIN_KFS}) and {m.n_landmarks()} landmarks "
+                 f"(>= {SLAM_MIN_LMS}) required")
+        log("slam: keyframe and landmark floors skipped (shortened run)")
+    if not gate_ate:
+        log("slam: ATE gate skipped (not the default configuration the bound was measured on)")
+    elif not ate.rmse_scaled <= SLAM_ATE_M + TOL_SLAM_ATE_M:
+        fail(f"slam: scale-aligned ATE {ate.rmse_scaled:.6f} m > {SLAM_ATE_M} + {TOL_SLAM_ATE_M} m")
+    return launches
+
+
+def phase_profile_slam(dev, scene, frames, orb_params):
+    """torch.profiler over the SLAM phase's frames after initialization:
+    kernel launches and device time per tracked frame and per mapping step
+    (a keyframe frame less an average tracked frame)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
+
+    trk = make_slam_tracker(dev, scene, orb_params)
+    acc = {False: [0, 0, 0.0], True: [0, 0, 0.0]}  # keyframe frame? -> [frames, kernels, device us]
+    by_kernel: dict[str, list] = {}  # keyframe frames only: kernel name -> [launches, device us]
+    for i, f in enumerate(frames):
+        kfs0 = trk.n_kf_inserted
+        if kfs0 == 0:
+            trk.track(f, i * 0.05)
+            continue
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            trk.track(f, i * 0.05)
+            torch.cuda.synchronize()
+        ks = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and not e.key.startswith(("Memcpy", "Memset"))]
+        is_kf = trk.n_kf_inserted > kfs0
+        a = acc[is_kf]
+        a[0] += 1
+        a[1] += sum(e.count for e in ks)
+        a[2] += sum(dev_us(e) for e in ks)
+        if is_kf:
+            for e in ks:
+                b = by_kernel.setdefault(e.key, [0, 0.0])
+                b[0] += e.count
+                b[1] += dev_us(e)
+    (nt, kt, ut), (nk, kk, uk) = acc[False], acc[True]
+    if nt:
+        log(f"profile: slam: tracked frame without a keyframe ({nt}): {kt / nt:.1f} kernel launches, "
+            f"{ut / nt / 1e3:.3f} ms of device time")
+    if nt and nk:
+        log(f"profile: slam: keyframe frame ({nk}): {kk / nk:.1f} kernel launches, {uk / nk / 1e3:.3f} ms of device "
+            f"time; less a tracked frame, one mapping step: {kk / nk - kt / nt:.1f} launches, "
+            f"{(uk / nk - ut / nt) / 1e3:.3f} ms of device time")
+        for key, (cnt, us) in sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:8]:
+            log(f"profile: slam: keyframe frames: {us / nk / 1e3:.3f} ms, {cnt / nk:.1f} launches a frame: {key[:90]}")
+
+
 def phase_profile(dev, make, frames, orb_params, n):
     """torch.profiler over n tracked frames: kernel launches and device
     time per frame, the fused kernel's device time, host time per stage,
@@ -539,7 +732,7 @@ def phase_compare_routes(dev, make, frames, block=10):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--frames", type=int, default=FRAMES,
-                    help="frames to track; any other count than the default skips the ATE gate")
+                    help="frames to track in both tracked phases; any other count than the default skips the ATE gates")
     ap.add_argument("--profile", type=int, default=0, metavar="N",
                     help="also profile N tracked frames with torch.profiler (default: off)")
     ap.add_argument("--compare-routes", action="store_true",
@@ -584,17 +777,24 @@ def main(argv=None) -> int:
         dev, make, ts, frames, min(CPU_CHECK, args.frames), gate_ate=args.frames == FRAMES
     )
     gather_launches = phase_per_level_path(dev, frames[: min(PER_LEVEL_FRAMES, args.frames)], orb_params)
+    slam_launches = phase_slam(dev, scene, ts, frames, orb_params, gate_ate=args.frames == FRAMES)
     if args.compare_routes:
         phase_compare_routes(dev, make, frames)
     if args.profile:
         phase_profile(dev, make, frames, orb_params, min(args.profile, args.frames - 2))
+        # The profiler costs seconds a frame: the first frames only.
+        phase_profile_slam(dev, scene, frames[:SLAM_PROFILE_FRAMES], orb_params)
 
     tpu_kernel = "orbslam3_cpp_fork_tpu/ops/patches.py:50"
     record = {"kernels": [
         {
             "name": "orb_describe", "route": "cuda",
             "source": "orbslam3_cpp_fork_tpu_torch/csrc/orb_describe.cu", "replaces": tpu_kernel,
-            "launches": describe_launches, "max_abs_err": describe["max_abs_err"],
+            # One launch a frame on both main paths: localization-only
+            # tracking and the cold-start SLAM run, each counted from 0.
+            "launches": describe_launches + slam_launches,
+            "launches_localization": describe_launches, "launches_slam": slam_launches,
+            "max_abs_err": describe["max_abs_err"],
             "ms": describe["ms"], "plain_ms": describe["plain_ms"],
             "bound_ms": describe["bound_ms"], "bound_by": describe["bound_by"],
             # No single PyTorch call gathers windows, sums moments and

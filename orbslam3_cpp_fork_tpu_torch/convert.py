@@ -1,5 +1,5 @@
-"""The state carried across from the reference runtime: camera and
-local-map snapshot.
+"""The state carried across from the reference runtime: camera, local-map
+snapshot, the whole map, a window-BA problem, the tracker configuration.
 
 The system has no weights. Its tracking state is the camera and the
 local-map snapshot the reference uploads in Tracker._refresh_dev_local:
@@ -11,12 +11,18 @@ masks behave on every device.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
 from .device import get_device
+from .models.map_state import MapConfig, MapState
 from .ops.camera import Camera
+from .ops.orb import OrbParams
+from .optim.local_ba import BAProblem
 from .runtime.localization import LocalMap
+from .runtime.tracker import DeviceKFStore, Sensor, TrackerConfig
 
 SNAPSHOT_KEYS = ("pos", "normal", "mind", "maxd", "desc", "valid")
 
@@ -47,3 +53,97 @@ def local_map_from_numpy(d: dict, device) -> LocalMap:
 def camera_from_numpy(fx, fy, cx, cy, dist=(0.0, 0.0, 0.0, 0.0, 0.0)) -> Camera:
     """Pinhole + radial-tangential camera from plain numbers."""
     return Camera.pinhole(fx, fy, cx, cy, tuple(np.asarray(dist, np.float64).ravel()))
+
+
+# Every SoA field of the reference's MapState, by name (scalars first).
+MAP_SCALARS = ("map_id", "big_change_idx", "imu_stage", "imu_t0", "_next_kf_slot", "_next_lm_slot")
+MAP_ARRAYS = (
+    "kf_valid", "kf_R", "kf_t", "kf_timestamp", "kf_frame_id",
+    "kf_xy", "kf_level", "kf_angle", "kf_desc", "kf_feat_valid", "kf_lm_idx", "kf_ur", "kf_depth",
+    "kf_vel", "kf_bg", "kf_ba", "kf_prev", "kf_next",
+    "kf_pre_valid", "kf_pre_dR", "kf_pre_dV", "kf_pre_dP", "kf_pre_C", "kf_pre_J", "kf_pre_dT",
+    "kf_pre_bias", "kf_imu", "kf_imu_n",
+    "lm_valid", "lm_pos", "lm_desc", "lm_desc_i8", "lm_normal", "lm_min_dist", "lm_max_dist",
+    "lm_level", "lm_visible", "lm_found", "lm_first_kf", "lm_birth_fid", "lm_obs_count",
+    "kf_gen", "lm_gen", "lm_replaced", "obs",
+)
+
+
+def map_state_to_numpy(m) -> dict:
+    """Every SoA field of a MapState (the reference's or the port's: the
+    field names are the same) as a dict of numpy arrays and scalars."""
+    d = {k: getattr(m, k) for k in MAP_SCALARS}
+    d.update({k: np.array(getattr(m, k)) for k in MAP_ARRAYS})
+    return d
+
+
+def map_state_from_numpy(arrays: dict) -> MapState:
+    """Dict of the reference MapState's fields (`map_state_to_numpy`) ->
+    the port's MapState, capacities taken from the array shapes. The
+    covisibility mirror is rebuilt from `obs` on its first query."""
+    missing = [k for k in MAP_ARRAYS if k not in arrays]
+    if missing:
+        raise KeyError(f"map state lacks {missing}")
+    K, L = arrays["obs"].shape
+    cfg = MapConfig(
+        max_keyframes=K, max_landmarks=L, n_features=arrays["kf_xy"].shape[1], imu_cap=arrays["kf_imu"].shape[1],
+    )
+    m = MapState(cfg, map_id=int(arrays.get("map_id", 0)))
+    for k in MAP_ARRAYS:
+        dst = getattr(m, k)
+        src = np.asarray(arrays[k])
+        if src.shape != dst.shape:
+            raise ValueError(f"{k}: shape {src.shape}, expected {dst.shape}")
+        dst[...] = src.astype(dst.dtype)
+    for k in MAP_SCALARS:
+        if k in arrays and k != "map_id":
+            setattr(m, k, type(getattr(m, k))(arrays[k]))
+    m.mark_obs_dirty()
+    return m
+
+
+BA_FIELDS = (
+    "R", "t", "kf_valid", "kf_fixed", "Xw", "lm_valid", "obs_kf", "obs_lm",
+    "obs_uvr", "obs_sigma2", "obs_stereo", "obs_valid",
+)
+
+
+def ba_problem_from_numpy(d: dict, device) -> BAProblem:
+    """Dict of the reference BAProblem's fields -> the port's BAProblem on
+    `device` (indices int64, masks bool, the rest f32; fx, fy, bf floats)."""
+    dev = get_device(device)
+    kinds = {"kf_valid": bool, "kf_fixed": bool, "lm_valid": bool, "obs_stereo": bool, "obs_valid": bool,
+             "obs_kf": np.int64, "obs_lm": np.int64}
+    fields = {
+        k: torch.from_numpy(np.ascontiguousarray(d[k], kinds.get(k, np.float32))).to(dev) for k in BA_FIELDS
+    }
+    return BAProblem(**fields, fx=float(d["fx"]), fy=float(d["fy"]), bf=float(d["bf"]))
+
+
+def kf_store_from_numpy(m: MapState, device) -> DeviceKFStore:
+    """Device keyframe store mirroring every valid keyframe of map `m`."""
+    store = DeviceKFStore(m.cfg.max_keyframes, m.cfg.n_features, get_device(device))
+    store.sync(m, np.nonzero(m.kf_valid)[0])
+    return store
+
+
+def tracker_config_from_reference(d: dict) -> TrackerConfig:
+    """The reference TrackerConfig's fields as a dict (e.g.
+    `dataclasses.asdict` without its nested objects) -> the port's config,
+    for the fields the ported slice reads. `camera` may be a dict of
+    fx, fy, cx, cy[, dist]; `orb` and `map_cfg` dicts of their fields;
+    `sensor` an enum member or its name. Unknown fields are ignored, so the
+    unsupported ones are refused by `Tracker`, not here."""
+    known = {f.name for f in dataclasses.fields(TrackerConfig)}
+    kw = {k: v for k, v in d.items() if k in known}
+    cam = kw.get("camera")
+    if isinstance(cam, dict):
+        kw["camera"] = camera_from_numpy(cam["fx"], cam["fy"], cam["cx"], cam["cy"], cam.get("dist", (0.0,) * 5))
+    if isinstance(kw.get("orb"), dict):
+        kw["orb"] = OrbParams(**kw["orb"])
+    if isinstance(kw.get("map_cfg"), dict):
+        kw["map_cfg"] = MapConfig(**kw["map_cfg"])
+    sensor = kw.get("sensor")
+    if sensor is not None and not isinstance(sensor, Sensor):
+        kw["sensor"] = Sensor[getattr(sensor, "name", sensor)]
+    return TrackerConfig(**kw)

@@ -11,6 +11,7 @@ default. `get_device` turns both TF32 switches off before any work runs.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -35,3 +36,33 @@ def get_device(name: str | torch.device = "cuda") -> torch.device:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return dev
+
+
+# Result blocks fetched from a device since the process started (each is
+# one host sync); the smoke run reports it per frame and per mapping step.
+n_fetches = 0
+
+
+def fetch_block(tensors) -> list[np.ndarray]:
+    """Copy a group of tensors to the host as numpy arrays in ONE transfer.
+
+    On a CUDA device the tensors are packed into one byte buffer on the
+    device, copied once (one host sync) and split again on the host; each
+    array keeps its shape and dtype (bool, integer or float). CPU tensors
+    are returned as numpy views of copies.
+    """
+    global n_fetches
+    tensors = [t.detach() for t in tensors]
+    if not tensors:
+        return []
+    if tensors[0].device.type == "cpu":
+        return [t.clone().numpy() for t in tensors]
+    n_fetches += 1
+    flat = torch.cat([t.contiguous().reshape(-1).view(torch.uint8) for t in tensors]).cpu().numpy()
+    out, at = [], 0
+    for t in tensors:
+        n = t.numel() * t.element_size()
+        dtype = np.bool_ if t.dtype == torch.bool else torch.empty(0, dtype=t.dtype).numpy().dtype
+        out.append(flat[at : at + n].view(dtype).reshape(tuple(t.shape)).copy())
+        at += n
+    return out

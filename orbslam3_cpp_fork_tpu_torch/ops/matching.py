@@ -10,6 +10,8 @@ windows and scale bands are +INF penalties added to the distance matrix;
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 TH_HIGH = 100
@@ -119,3 +121,49 @@ def search_by_projection(
     return match_nn(
         dist, valid_map, valid_frame, max_dist, ratio, cross_check=True, extra_penalty=pen
     )
+
+
+def rotation_consistency(
+    angle_a: torch.Tensor,
+    angle_b: torch.Tensor,
+    idx_b: torch.Tensor,
+    ok: torch.Tensor,
+    n_bins: int = HISTO_LENGTH,
+    keep_top: int = 3,
+) -> torch.Tensor:
+    """Keep only matches whose angle difference falls in the top-k histogram
+    bins (CheckOrientation / ComputeThreeMaxima): bins 2 and 3 only if
+    their count exceeds a tenth of the largest. Ties between bins go to the
+    lower bin (a stable descending sort), as `lax.top_k` does."""
+    two_pi = 2 * math.pi
+    rot = torch.remainder(angle_a - angle_b[idx_b], two_pi)
+    bins = torch.clamp((rot * (n_bins / two_pi)).to(torch.int32), 0, n_bins - 1).long()
+    # Integer sums: the order of the scatter does not change the result.
+    counts = torch.zeros(n_bins, dtype=torch.int32, device=ok.device).index_add_(0, bins, ok.to(torch.int32))
+    top_c, top_i = torch.sort(counts, descending=True, stable=True)
+    keep_bin = torch.zeros(n_bins, dtype=torch.bool, device=ok.device)
+    for k in range(keep_top):
+        cond = top_c[k] > 0
+        if k:
+            cond = cond & (top_c[k] * 10 > top_c[0])
+        hit = torch.arange(n_bins, device=ok.device) == top_i[k]
+        keep_bin = keep_bin | (hit & cond)
+    return ok & keep_bin[bins]
+
+
+def epipolar_penalty(
+    F12: torch.Tensor,
+    xy1: torch.Tensor,
+    xy2: torch.Tensor,
+    sigma2_2: torch.Tensor,
+    chi2_th: float = 3.84,
+) -> torch.Tensor:
+    """(N,M) penalty: +INF where x2 is farther than chi2_th * sigma from the
+    epipolar line of x1 (SearchForTriangulation's CheckDistEpipolarLine)."""
+    x1h = torch.cat([xy1, torch.ones_like(xy1[..., :1])], dim=-1)  # (N,3)
+    lines = x1h @ F12.T  # (N,3) lines in image 2 (a,b,c)
+    a, b, c = lines[:, 0:1], lines[:, 1:2], lines[:, 2:3]
+    d = a * xy2[None, :, 0] + b * xy2[None, :, 1] + c  # (N,M)
+    dsq = d * d / torch.clamp_min(a * a + b * b, 1e-12)
+    ok = dsq < chi2_th * sigma2_2[None, :]
+    return torch.where(ok, torch.zeros_like(dsq), torch.full_like(dsq, INF))

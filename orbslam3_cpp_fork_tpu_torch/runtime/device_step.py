@@ -14,29 +14,12 @@ to the host, so consecutive frames chain on the device with no sync.
 
 from __future__ import annotations
 
-import functools
-
 import torch
 
 from ..ops import matching, orb
 from ..ops.camera import Camera, undistort_points
-from ..ops.image import SCALE_FACTOR
 from ..optim import pose_opt
-from .tracker import project_landmarks
-
-
-@functools.lru_cache(maxsize=None)
-def _scale_powers(device: torch.device) -> torch.Tensor:
-    """SCALE_FACTOR ** k for k = 0..15 in f32, computed once on the CPU so
-    that every device uses the same values (pow differs in its last bit
-    between the CPU and CUDA libraries)."""
-    k = torch.arange(16, dtype=torch.float32)
-    return torch.pow(torch.tensor(SCALE_FACTOR, dtype=torch.float32), k).to(device)
-
-
-def _scale_pow(k: torch.Tensor) -> torch.Tensor:
-    """SCALE_FACTOR ** k for integer exponents 0 <= k < 16."""
-    return _scale_powers(k.device)[k.long()]
+from .tracker import _scale_pow, project_landmarks
 
 
 def _centered(xy: torch.Tensor, cx, cy) -> torch.Tensor:
@@ -170,6 +153,12 @@ def _track_stages_core(
         res3.R, res3.t, idx_m3, mok_m3, res3.inliers,
         res3.n_inliers, n_stage1, visible,
     )
+
+
+# The un-jitted core under the reference's name: the synchronous tracker
+# calls it once per frame on already-extracted features and fetches its
+# small result block.
+fused_track_stages = _track_stages_core
 
 
 def fused_frame_program(

@@ -1,16 +1,164 @@
-"""Landmark projection for the tracking path (port of runtime/tracker.py's
-`project_landmarks`; the rest of the mono tracker is not ported yet)."""
+"""Monocular tracking + local mapping, synchronous mode (port of
+runtime/tracker.py).
+
+Host-orchestrated state machine (Tracking.cc + LocalMapping.cc) whose heavy
+stages are fixed-shape device programs:
+
+frame -> extract_orb -> [two-view init | fused three-stage track] ->
+keyframe policy -> (insert KF -> triangulate new landmarks -> fuse
+duplicates -> cull -> window BA -> cull keyframes)
+
+Ported: the monocular, frame-synchronous path (`async_mapping=False`,
+no pipelining, no loop closing). Every other configuration raises
+`NotImplementedError` at construction, naming the ROADMAP item. The
+keyframe database (relocalization, loop detection: A10) and the Atlas
+(A12) are left out: `Tracker.map` is one `MapState`.
+
+The host side is numpy, as in the reference; device work runs on
+`Tracker.device` in f32 (window BA included), each stage fetches its
+result block in one transfer (`device.fetch_block`), and every shape is
+padded to the configured caps so the programs stay capturable. The map
+lock is kept where the reference takes it: nothing contends for it in this
+mode, and it marks the sections the mapping worker must not interleave.
+
+Trajectory bookkeeping stores (ref_kf, T_frame<-refkf) like
+Tracking::mlRelativeFramePoses, so BA corrections reach the exported
+trajectory.
+"""
 
 from __future__ import annotations
 
+import dataclasses
+import enum
+import functools
+import logging
+import threading
+
+import numpy as np
 import torch
 
-from ..ops.camera import true_div
+from ..device import fetch_block, get_device
+from ..models.map_state import LEVEL_SIGMA2, MapConfig, MapState
+from ..ops import geometry, matching, orb, ransac
+from ..ops.camera import Camera, true_div, undistort_points
 from ..ops.image import N_LEVELS, SCALE_FACTOR
 from ..utils import lie
+from ..utils.timers import StageTimers
+
+log = logging.getLogger("orbslam3_torch.tracker")
 
 # log(1.2) evaluated in f32, as the reference's jnp.log(SCALE_FACTOR).
 _LOG_SCALE = torch.log(torch.tensor(SCALE_FACTOR, dtype=torch.float32)).item()
+
+_POW_MIN = -16  # lowest exponent of the 1.2^k table
+
+
+@functools.lru_cache(maxsize=None)
+def _scale_powers(device: torch.device) -> torch.Tensor:
+    """SCALE_FACTOR ** k for k = -16..15 in f32, computed once on the CPU so
+    that every device uses the same values (pow differs in its last bit
+    between the CPU and CUDA libraries)."""
+    k = torch.arange(_POW_MIN, 16, dtype=torch.float32)
+    return torch.pow(torch.tensor(SCALE_FACTOR, dtype=torch.float32), k).to(device)
+
+
+def _scale_pow(k: torch.Tensor) -> torch.Tensor:
+    """SCALE_FACTOR ** k for integer exponents -16 <= k < 16."""
+    return _scale_powers(k.device)[k.long() - _POW_MIN]
+
+
+def informed_obs_drop(o_lm: np.ndarray, cap: int, rng: np.random.Generator, keep_per_lm: int = 4) -> np.ndarray:
+    """Select `cap` observation indices, keeping a core of up to
+    `keep_per_lm` observations per landmark before any landmark loses more
+    (a uniform random drop can remove all observations of a landmark).
+    Which observations form a landmark's core is randomized."""
+    n = len(o_lm)
+    if n <= cap:
+        return np.arange(n)
+    perm = rng.permutation(n)
+    lm_p = o_lm[perm]
+    srt = np.argsort(lm_p, kind="stable")
+    lm_s = lm_p[srt]
+    new_grp = np.r_[True, lm_s[1:] != lm_s[:-1]]
+    grp_start_idx = np.nonzero(new_grp)[0]
+    grp_id = np.cumsum(new_grp) - 1
+    rank = np.arange(n) - grp_start_idx[grp_id]
+    rank_p = np.empty(n, np.int64)
+    rank_p[srt] = rank
+    core = perm[rank_p < keep_per_lm]
+    rest = perm[rank_p >= keep_per_lm]
+    if len(core) >= cap:
+        return core[:cap]
+    return np.concatenate([core, rest[: cap - len(core)]])
+
+
+class TrackState(enum.Enum):
+    NO_IMAGES_YET = 0
+    NOT_INITIALIZED = 1
+    OK = 2
+    RECENTLY_LOST = 3
+    LOST = 4
+
+
+class Sensor(enum.Enum):
+    """System::eSensor."""
+
+    MONOCULAR = 0
+    STEREO = 1
+    RGBD = 2
+    IMU_MONOCULAR = 3
+    IMU_STEREO = 4
+    IMU_RGBD = 5
+
+
+@dataclasses.dataclass
+class TrackerConfig:
+    """The reference's tracker configuration, with the fields the ported
+    slice reads (same names, same defaults). `sensor`, `imu`,
+    `async_mapping`, `pipeline_lag` and `enable_loop_closing` are kept so
+    that a configuration outside the slice is refused by name."""
+
+    camera: Camera = None
+    width: int = 752
+    height: int = 480
+    sensor: Sensor = Sensor.MONOCULAR
+    imu: object | None = None
+    orb: orb.OrbParams = dataclasses.field(default_factory=orb.OrbParams)
+    bf: float = 0.0
+    enable_loop_closing: bool = True
+    async_mapping: bool = True
+    pipeline_lag: int | None = None
+    # Re-center the device local-map snapshot at least this often (frames).
+    snapshot_max_age_frames: int = 3
+    # Matching / tracking thresholds (reference values).
+    init_min_matches: int = 100
+    min_track_matches: int = 20
+    min_localmap_inliers: int = 30
+    kf_max_interval: int = 30
+    kf_min_interval: int = 4
+    # Temporally newest keyframes placed ahead of the covisibles in the
+    # triangulation pair set.
+    tri_recent_first: int = 8
+    # Covisible neighbours triangulated against per new keyframe.
+    triangulate_neighbors: int = 6
+    kf_ref_ratio: float = 0.9
+    # Maximum frame gap a relative trajectory record may span before it is
+    # re-anchored onto the next inserted keyframe.
+    max_record_gap: int = 15
+    local_window_kfs: int = 10
+    ba_iters_per_kf: int = 6
+    # Static capacities of the device programs.
+    local_lm_cap: int = 4096
+    ba_kf_cap: int = 16
+    ba_fixed_cap: int = 8
+    ba_lm_cap: int = 4096
+    ba_obs_cap: int = 24576
+    map_cfg: MapConfig = dataclasses.field(default_factory=MapConfig)
+
+
+# ----------------------------------------------------------------------------
+# Device programs
+# ----------------------------------------------------------------------------
 
 
 def project_landmarks(
@@ -45,3 +193,1455 @@ def project_landmarks(
     level = torch.ceil(true_div(torch.log(ratio), _LOG_SCALE)).to(torch.int32)
     level = torch.clamp(level, 0, n_levels - 1)
     return torch.stack([u, v], dim=-1), level, dist, ok
+
+
+def match_initialization(desc1_i8, xy1, valid1, angle1, desc2_i8, xy2, valid2, angle2):
+    """2-view init matching: windowed (100 px) ratio 0.9 + rotation check
+    (ORBmatcher::SearchForInitialization)."""
+    dist = matching.hamming_matrix(desc1_i8, desc2_i8)
+    pen = matching.window_penalty(xy1, xy2, torch.full((xy1.shape[0],), 100.0, device=xy1.device))
+    idx, ok = matching.match_nn(dist, valid1, valid2, max_dist=50, ratio=0.9, cross_check=True, extra_penalty=pen)
+    ok = matching.rotation_consistency(angle1, angle2, idx, ok)
+    return idx, ok
+
+
+def match_triangulation(desc1_i8, xy1, free1, angle1, desc2_i8, xy2, free2, angle2, sigma2_2, F12):
+    """Epipolar-constrained matching of unbound features for new-landmark
+    triangulation (ORBmatcher::SearchForTriangulation)."""
+    dist = matching.hamming_matrix(desc1_i8, desc2_i8)
+    pen = matching.epipolar_penalty(F12, xy1, xy2, sigma2_2)
+    idx, ok = matching.match_nn(
+        dist, free1, free2, max_dist=matching.TH_LOW, ratio=0.8, cross_check=True, extra_penalty=pen,
+    )
+    ok = matching.rotation_consistency(angle1, angle2, idx, ok)
+    return idx, ok
+
+
+def triangulate_and_check(
+    R1, t1, R2, t2, K, uv1, uv2, sigma2_1, sigma2_2,
+    z_st1, z_st2, ur1, ur2, bf, oct_ratio, valid,
+):
+    """Batched new-landmark geometry with the reference's full policy
+    (LocalMapping::CreateNewMapPoints):
+
+    - Parallax arbitration: DLT-triangulate only when the two-view ray
+      parallax beats the stereo rig's own parallax cos(2*atan2(b/2, z));
+      otherwise unproject from the stereo depth of whichever keyframe has
+      the stronger rig parallax (mono features carry depth < 0 and always
+      take the two-view route).
+    - Acceptance: positive depth in both views; reprojection chi2 < 5.991
+      (mono) / 7.815 with the ur residual (stereo features); octave
+      scale-consistency ratio within 1.5x the scale factor.
+
+    z_st*/ur*: per-feature stereo depth / right-u (< 0 = mono feature).
+    oct_ratio: scale1/scale2 = 1.2^(lvl1-lvl2) per candidate pair.
+    Returns (X (N,3), good (N,)).
+    """
+    st1 = z_st1 > 0
+    st2 = z_st2 > 0
+    b = bf / K[0, 0]
+    two = torch.full_like(z_st1, 2.0)
+    cs1 = torch.where(st1, torch.cos(2.0 * torch.atan2(b / 2.0, z_st1)), two)
+    cs2 = torch.where(st2, torch.cos(2.0 * torch.atan2(b / 2.0, z_st2)), two)
+    cs = torch.minimum(cs1, cs2)
+
+    # Ray parallax from the keypoint bearings (not the DLT point).
+    Kinv = geometry._inv(K)
+    ones = torch.ones((uv1.shape[0], 1), dtype=uv1.dtype, device=uv1.device)
+    xn1 = torch.cat([uv1, ones], -1) @ Kinv.T
+    xn2 = torch.cat([uv2, ones], -1) @ Kinv.T
+    ray1 = xn1 @ R1  # = R1^T xn rowwise (world direction)
+    ray2 = xn2 @ R2
+    cosp = torch.sum(ray1 * ray2, -1) / torch.clamp_min(
+        torch.linalg.vector_norm(ray1, dim=-1) * torch.linalg.vector_norm(ray2, dim=-1), 1e-12
+    )
+
+    P1 = geometry.projection_matrix(K, R1, t1)
+    P2 = geometry.projection_matrix(K, R2, t2)
+    X_dlt = geometry.triangulate_dlt(P1, P2, uv1, uv2)
+    # Rig unprojections: X = R^T (z * K^-1 [u,v,1] - t).
+    X_s1 = (xn1 * z_st1[:, None] - t1) @ R1
+    X_s2 = (xn2 * z_st2[:, None] - t2) @ R2
+
+    use_dlt = (cosp > 0) & (cosp < cs) & (st1 | st2 | (cosp < 0.9998))
+    use_s1 = ~use_dlt & st1 & (cs1 < cs2)
+    use_s2 = ~use_dlt & ~use_s1 & st2
+    X = torch.where(use_dlt[:, None], X_dlt, torch.where(use_s1[:, None], X_s1, X_s2))
+    accepted = use_dlt | use_s1 | use_s2
+
+    pc1 = lie.se3_apply(R1, t1, X)
+    pc2 = lie.se3_apply(R2, t2, X)
+    z1, z2 = pc1[:, 2], pc2[:, 2]
+
+    def reproj_chi2(pc, uv, ur, st, sigma2):
+        zs = torch.where(torch.abs(pc[:, 2]) < 1e-9, torch.full_like(pc[:, 2], 1e-9), pc[:, 2])
+        p = (pc / zs[:, None]) @ K.T
+        e = torch.sum((p[:, :2] - uv) ** 2, dim=-1)
+        e_r = (p[:, 0] - bf / zs - ur) ** 2
+        chi = (e + torch.where(st, e_r, torch.zeros_like(e_r))) / sigma2
+        return chi < torch.where(st, 7.815, 5.991)
+
+    ok1 = reproj_chi2(pc1, uv1, ur1, st1, sigma2_1)
+    ok2 = reproj_chi2(pc2, uv2, ur2, st2, sigma2_2)
+    c1 = -torch.einsum("ji,j->i", R1, t1)
+    c2 = -torch.einsum("ji,j->i", R2, t2)
+    dist1 = torch.linalg.vector_norm(X - c1, dim=-1)
+    dist2 = torch.linalg.vector_norm(X - c2, dim=-1)
+    ratio_dist = dist2 / torch.clamp_min(dist1, 1e-12)
+    ratio_factor = 1.5 * SCALE_FACTOR
+    scale_ok = (ratio_dist * ratio_factor >= oct_ratio) & (ratio_dist <= oct_ratio * ratio_factor)
+    good = (
+        valid
+        & accepted
+        & torch.all(torch.isfinite(X), dim=-1)
+        & (z1 > 0.01) & (z2 > 0.01)
+        & ok1 & ok2 & scale_ok
+    )
+    return X, good
+
+
+def _unpack_desc(desc_packed: torch.Tensor) -> torch.Tensor:
+    """(...,8) packed descriptor words (int64 holding uint32) -> (...,256)
+    int8 bits on the device (np.unpackbits little order)."""
+    shifts = torch.arange(32, dtype=torch.int64, device=desc_packed.device)
+    bits = (desc_packed[..., :, None] >> shifts) & 1
+    return bits.reshape(*desc_packed.shape[:-1], 256).to(torch.int8)
+
+
+# Compacted result capacities: the device compacts accepted candidates so
+# that the fetched block is small (triangulation rarely yields more than
+# ~300 accepted candidates per pair, fusion ~300 matches per target).
+TRI_CAP = 384
+FUSE_CAP = 512
+
+
+def _compact(good: torch.Tensor, cap: int):
+    """Indices of the True entries first, in order (stable), cut to `cap`;
+    and which of the kept rows are True."""
+    sel = torch.argsort((~good).to(torch.int8), stable=True)[:cap]
+    return sel, good[sel]
+
+
+def fused_triangulate_batch(
+    R1, t1, desc1, xy1, free1, angle1, level1, depth1, ur1,
+    R2s, t2s, desc2s, xy2s, free2s, angle2s, level2s, depth2s, ur2s,
+    pair_ok, K, bf,
+):
+    """All neighbour-pair triangulation for one keyframe insertion as one
+    device program: per covisible neighbour, fundamental -> epipolar
+    matching -> triangulation + acceptance policy. The pairs run back to
+    back with no host read in between, one 1000x1000 matching block alive
+    at a time. Results are compacted on the device: per pair, up to TRI_CAP
+    accepted candidates as (f1, f2, X) rows with f1 = -1 padding.
+    Returns (f1 (T,C) int32, f2 (T,C) int32, X (T,C,3), n_match (T,))."""
+    bits1 = _unpack_desc(desc1)
+    sig2_1 = _scale_pow(2 * level1)
+    f1s, f2s, Xs, n_matches = [], [], [], []
+    for j in range(R2s.shape[0]):
+        R2, t2, lvl2, pok = R2s[j], t2s[j], level2s[j], pair_ok[j]
+        bits2 = _unpack_desc(desc2s[j])
+        sig2_2 = _scale_pow(2 * lvl2)
+        F12 = geometry.fundamental_from_poses(R1, t1, R2, t2, K, K)
+        idx, ok = match_triangulation(
+            bits1, xy1, free1 & pok, angle1, bits2, xy2s[j], free2s[j] & pok, angle2s[j], sig2_2, F12.T,
+        )
+        oct_ratio = _scale_pow(level1 - lvl2[idx])
+        X, good = triangulate_and_check(
+            R1, t1, R2, t2, K, xy1, xy2s[j][idx], sig2_1, sig2_2[idx],
+            depth1, depth2s[j][idx], ur1, ur2s[j][idx], bf, oct_ratio, ok & pok,
+        )
+        sel, keep = _compact(good, TRI_CAP)  # accepted rows first, stable
+        f1s.append(torch.where(keep, sel, torch.full_like(sel, -1)).to(torch.int32))
+        f2s.append(idx[sel].to(torch.int32))
+        Xs.append(X[sel])
+        n_matches.append(torch.sum((ok & pok).to(torch.int32)))
+    return torch.stack(f1s), torch.stack(f2s), torch.stack(Xs), torch.stack(n_matches)
+
+
+def fused_triangulate_store(
+    s_desc, s_xy, s_level, s_angle, s_depth, s_ur,  # device KF store
+    k1, tri_idx,  # new-KF row, (T,) neighbour rows
+    R1, t1, R2s, t2s,
+    free1, free2s,  # (N,), (T,N) host-computed unbound masks
+    pair_ok, K, bf,
+):
+    """fused_triangulate_batch with the keyframe-row gathers inside the
+    program: the caller passes the whole device keyframe store plus row
+    indices instead of pre-gathered rows."""
+    return fused_triangulate_batch(
+        R1, t1, s_desc[k1], s_xy[k1], free1, s_angle[k1], s_level[k1], s_depth[k1], s_ur[k1],
+        R2s, t2s, s_desc[tri_idx], s_xy[tri_idx], free2s,
+        s_angle[tri_idx], s_level[tri_idx], s_depth[tri_idx], s_ur[tri_idx],
+        pair_ok, K, bf,
+    )
+
+
+def fused_fuse_batch(
+    lm_pos, lm_normal, lm_min_dist, lm_max_dist, lm_desc, lm_valid,
+    tgt_mask,  # (T,L): per-target landmark subset
+    kf_R, kf_t,  # (T,3,3), (T,3)
+    kf_desc, kf_xy, kf_level, kf_valid,  # (T,N,8),(T,N,2),(T,N),(T,N)
+    fx, fy, cx, cy, width, height,
+):
+    """The matching half of SearchInNeighbors duplicate fusion
+    (ORBmatcher::Fuse) over all target keyframes as one device program:
+    project each landmark subset into its target, window-match at the
+    scale-predicted radius, chi2-gate. The targets run back to back with no
+    host read in between. Returns compacted (lm_slot (T,FUSE_CAP), feat
+    (T,FUSE_CAP)) match pairs (lm_slot = -1 padding); the merge bookkeeping
+    (Replace policy) stays on the host."""
+    lm_bits = _unpack_desc(lm_desc)
+    lmcs, feats = [], []
+    for j in range(kf_R.shape[0]):
+        R, t, xy, lvl = kf_R[j], kf_t[j], kf_xy[j], kf_level[j]
+        bits_kf = _unpack_desc(kf_desc[j])
+        pc = lie.se3_apply(R, t, lm_pos)
+        z = pc[:, 2]
+        zs = torch.where(z < 1e-6, torch.full_like(z, 1e-6), z)
+        u = fx * pc[:, 0] / zs + cx
+        v = fy * pc[:, 1] / zs + cy
+        c = -torch.einsum("ji,j->i", R, t)
+        dvec = lm_pos - c
+        dist = torch.linalg.vector_norm(dvec, dim=-1)
+        cosv = torch.sum(dvec * lm_normal, dim=-1) / torch.clamp_min(dist, 1e-9)
+        okp = (
+            tgt_mask[j] & lm_valid & (z > 0.05)
+            & (u >= 0) & (u < width) & (v >= 0) & (v < height)
+            & (dist >= lm_min_dist) & (dist <= lm_max_dist)
+            & (cosv > 0.5)
+        )
+        ratio = torch.clamp_min(lm_max_dist / torch.clamp_min(dist, 1e-9), 1.0)
+        lvl_pred = torch.clamp(torch.ceil(true_div(torch.log(ratio), _LOG_SCALE)), 0, N_LEVELS - 1).to(torch.int32)
+        radius = 3.0 * _scale_pow(lvl_pred)
+        uv = torch.stack([u, v], -1)
+        dmat = matching.hamming_matrix(lm_bits, bits_kf)
+        pen = matching.window_penalty(uv, xy, radius, lvl, lvl_pred - 1, lvl_pred + 1)
+        idx, mok = matching.match_nn(
+            dmat, okp, kf_valid[j], matching.TH_LOW, 1.0, cross_check=True, extra_penalty=pen,
+        )
+        # Reprojection chi2 gate at the matched keypoint's octave.
+        e2 = torch.sum((xy[idx] - uv) ** 2, dim=-1)
+        sig2 = _scale_pow(2 * lvl[idx])
+        mok = mok & (e2 <= 5.991 * sig2)
+        sel, keep = _compact(mok, FUSE_CAP)
+        lmcs.append(torch.where(keep, sel, torch.full_like(sel, -1)).to(torch.int32))
+        feats.append(idx[sel].to(torch.int32))
+    return torch.stack(lmcs), torch.stack(feats)
+
+
+def fused_fuse_store(
+    lm_geom,  # (L,8) f32: pos xyz, normal xyz, min_dist, max_dist
+    lm_desc, lm_valid,
+    cur_mask, fuse_mask, is_last,  # (L,), (L,), (T,) target-row masks
+    s_desc, s_xy, s_level, s_valid,  # device KF store
+    fuse_idx,  # (T,) target keyframe rows
+    kf_R, kf_t,
+    fx, fy, cx, cy, width, height,
+):
+    """fused_fuse_batch with keyframe-row gathers inside the program and
+    the landmark geometry packed into one upload. Target rows project the
+    new KF's landmarks (`cur_mask`); the final row (`is_last`) projects the
+    neighbourhood's landmarks back into the new KF (`fuse_mask`)."""
+    tgt_mask = torch.where(is_last[:, None], fuse_mask[None, :], cur_mask[None, :])
+    return fused_fuse_batch(
+        lm_geom[:, 0:3], lm_geom[:, 3:6], lm_geom[:, 6], lm_geom[:, 7],
+        lm_desc, lm_valid, tgt_mask,
+        kf_R, kf_t,
+        s_desc[fuse_idx], s_xy[fuse_idx], s_level[fuse_idx], s_valid[fuse_idx],
+        fx, fy, cx, cy, width, height,
+    )
+
+
+# ----------------------------------------------------------------------------
+# Frame record (host)
+# ----------------------------------------------------------------------------
+
+
+class FrameData:
+    """Per-frame record (the reference's Frame).
+
+    Feature arrays are lazy: extraction output stays on the device and the
+    host copies materialize on first attribute access in one batched
+    transfer. `desc_i8` is never transferred: it is recomputed from the
+    packed descriptors on the host."""
+
+    def __init__(self, frame_id, timestamp, xy=None, level=None, angle=None,
+                 desc=None, desc_i8=None, valid=None, R=None, t=None,
+                 lm_idx=None, ur=None, depth=None, feats_dev=None,
+                 xy_dev=None, img_u8=None):
+        self.frame_id = frame_id
+        self.timestamp = timestamp
+        self.img_u8 = img_u8  # raw frame; kept until features exist
+        self._xy = xy
+        self._level = level
+        self._angle = angle
+        self._desc = desc
+        self._desc_i8 = desc_i8
+        self._valid = valid
+        self.R = R  # Tcw
+        self.t = t
+        self.lm_idx = lm_idx  # (N,) bound landmark ids (-1 none)
+        self.ur = ur  # (N,) right-u (<0 mono feature)
+        self.depth = depth  # (N,) depth (<0 unknown)
+        self._feats_dev = feats_dev  # orb.Features on the device
+        self._xy_dev = xy_dev  # undistorted keypoints, device
+
+    def _materialize(self):
+        fd = self._feats_dev
+        if fd is None:
+            return
+        xy, level, angle, desc, valid = fetch_block(
+            (self._xy_dev if self._xy_dev is not None else fd.xy, fd.level, fd.angle, fd.desc, fd.valid)
+        )
+        if self._xy is None:
+            self._xy = xy
+        if self._level is None:
+            self._level = level
+        if self._angle is None:
+            self._angle = angle
+        if self._desc is None:
+            self._desc = desc.astype(np.uint32)
+        if self._valid is None:
+            self._valid = valid
+
+    def _lazy(self, name):
+        if getattr(self, name) is None:
+            self._materialize()
+        return getattr(self, name)
+
+    @property
+    def xy(self) -> np.ndarray:
+        return self._lazy("_xy")
+
+    @property
+    def level(self) -> np.ndarray:
+        return self._lazy("_level")
+
+    @property
+    def angle(self) -> np.ndarray:
+        return self._lazy("_angle")
+
+    @property
+    def desc(self) -> np.ndarray:
+        return self._lazy("_desc")
+
+    @property
+    def valid(self) -> np.ndarray:
+        return self._lazy("_valid")
+
+    @property
+    def desc_i8(self) -> np.ndarray:
+        if self._desc_i8 is None:
+            self._desc_i8 = np.unpackbits(
+                np.ascontiguousarray(self.desc).view(np.uint8), axis=-1, bitorder="little",
+            ).astype(np.int8)
+        return self._desc_i8
+
+
+class DeviceKFStore:
+    """Device-resident mirror of the per-keyframe static feature arrays
+    (descriptors, keypoints, levels, angles, validity, stereo depth).
+
+    Triangulation and fusion consume whole keyframe rows; rows are uploaded
+    once per keyframe (lazily, generation-checked, so every mutation path
+    is covered) and the device programs gather them by index. Poses are not
+    mirrored: they move with every optimization and are small."""
+
+    def __init__(self, K: int, N: int, device: torch.device):
+        self.device = device
+        self.gen = np.full(K, -1, np.int64)
+        self.map_id = -1
+        self.desc = torch.zeros((K, N, 8), dtype=torch.int64, device=device)
+        self.xy = torch.zeros((K, N, 2), dtype=torch.float32, device=device)
+        self.level = torch.zeros((K, N), dtype=torch.int32, device=device)
+        self.angle = torch.zeros((K, N), dtype=torch.float32, device=device)
+        self.valid = torch.zeros((K, N), dtype=torch.bool, device=device)
+        self.depth = torch.zeros((K, N), dtype=torch.float32, device=device)
+        self.ur = torch.zeros((K, N), dtype=torch.float32, device=device)
+
+    def sync(self, m, ks) -> None:
+        """Ensure rows `ks` mirror map `m` (call under the map lock)."""
+        if m.map_id != self.map_id:
+            self.gen[:] = -1
+            self.map_id = m.map_id
+        need = np.unique([int(k) for k in ks if self.gen[k] != m.kf_gen[k]]).astype(np.int64)
+        if len(need) == 0:
+            return
+        at = torch.from_numpy(need).to(self.device)
+
+        def put(dst, src):
+            dst.index_copy_(0, at, torch.from_numpy(np.ascontiguousarray(src)).to(self.device))
+
+        put(self.desc, m.kf_desc[need].astype(np.int64))
+        put(self.xy, m.kf_xy[need])
+        put(self.level, m.kf_level[need])
+        put(self.angle, m.kf_angle[need])
+        put(self.valid, m.kf_feat_valid[need])
+        put(self.depth, m.kf_depth[need])
+        put(self.ur, m.kf_ur[need])
+        self.gen[need] = m.kf_gen[need]
+
+
+# ----------------------------------------------------------------------------
+# The tracker
+# ----------------------------------------------------------------------------
+
+
+class Tracker:
+    """Monocular SLAM front end + local mapping, frame-synchronous
+    (System::TrackMonocular + Tracking::Track + LocalMapping::Run)."""
+
+    def __init__(self, cfg: TrackerConfig, device: str | torch.device = "cuda"):
+        assert cfg.camera is not None
+        if cfg.sensor != Sensor.MONOCULAR:
+            item = "A13" if cfg.sensor.name.startswith("IMU") else "A11"
+            raise NotImplementedError(f"sensor {cfg.sensor.name} is not ported yet (ROADMAP {item})")
+        if cfg.imu is not None:
+            raise NotImplementedError("inertial tracking is not ported yet (ROADMAP A13)")
+        if cfg.async_mapping:
+            raise NotImplementedError(
+                "async_mapping=True (the mapping worker) is not ported yet (ROADMAP A9); pass async_mapping=False"
+            )
+        if cfg.pipeline_lag not in (0, None):
+            raise NotImplementedError(
+                f"pipeline_lag={cfg.pipeline_lag} (pipelined tracking) is not ported yet (ROADMAP A9)"
+            )
+        if cfg.enable_loop_closing:
+            raise NotImplementedError(
+                "enable_loop_closing=True is not ported yet (ROADMAP A10); pass enable_loop_closing=False"
+            )
+        self.cfg = cfg
+        self.device = get_device(device)
+        self.cam = cfg.camera
+        self.fx, self.fy, self.cx, self.cy = self.cam.fx, self.cam.fy, self.cam.cx, self.cam.cy
+        self.K = np.array([[self.fx, 0.0, self.cx], [0.0, self.fy, self.cy], [0.0, 0.0, 1.0]], np.float32)
+        self._K_dev = torch.from_numpy(self.K).to(self.device)
+        # Feature capacity follows the extractor budget.
+        cfg.map_cfg.n_features = cfg.orb.n_features
+        self.timers = StageTimers()
+        self.map = MapState(cfg.map_cfg)
+        self.map_lock = threading.RLock()
+        self.state = TrackState.NO_IMAGES_YET
+        self.last: FrameData | None = None
+        self.init_ref: FrameData | None = None
+        self.velocity: tuple[np.ndarray, np.ndarray] | None = None  # Tcl
+        self.ref_kf: int = -1
+        self.last_kf_slot = -1  # temporal-chain tail (inertial only)
+        self.last_kf_frame_id: int = -1
+        self.frame_id: int = 0
+        # RANSAC hypotheses of the initializer are drawn from this generator.
+        self.rng = torch.Generator().manual_seed(0)
+        self.n_hyp = 256
+        # Trajectory bookkeeping: (frame_id, timestamp, map_id, ref_kf, R_cr, t_cr)
+        self.trajectory: list[tuple] = []
+        self._traj_anchor_ptr = 0
+        self.n_kf_inserted = 0
+        self._dev_local: dict | None = None  # device local-map snapshot
+        self._last_n_in = 0
+        self.n_sync_frames = 0
+        # Frames the fused path declined (the split-phase retry and
+        # relocalization are not ported: such a frame is a loss).
+        self.n_fused_declined = 0
+        self.n_lost_frames = 0
+        self.n_fused_last = 0  # duplicates merged by the last mapping step
+        self._kf_store = DeviceKFStore(cfg.map_cfg.max_keyframes, cfg.orb.n_features, self.device)
+        # Per-KF scene median depth cache (triangulation baseline gate).
+        self._kf_med_depth = np.zeros(cfg.map_cfg.max_keyframes, np.float32)
+        self._kf_med_depth_ver = (-1, -1)
+
+    # ------------------------------------------------------------------
+
+    def _put(self, x, dtype=None) -> torch.Tensor:
+        """Host array -> tensor on the tracker's device."""
+        a = np.ascontiguousarray(x) if dtype is None else np.ascontiguousarray(x, dtype)
+        return torch.from_numpy(a).to(self.device)
+
+    def _dev_feats(self, frame: "FrameData"):
+        """(xy undistorted, level, desc_i8, valid, angle) of a frame on the
+        device: the extractor's own tensors, or uploads of host arrays."""
+        fd = frame._feats_dev
+        if fd is not None:
+            return frame._xy_dev, fd.level, fd.desc_i8, fd.valid, fd.angle
+        put = self._put
+        return put(frame.xy), put(frame.level), put(frame.desc_i8), put(frame.valid), put(frame.angle)
+
+    def _sample_hypotheses(self, valid: torch.Tensor) -> torch.Tensor:
+        return ransac.sample_indices(self.rng, self.n_hyp, 8, valid)
+
+    def _extract(self, img: np.ndarray, timestamp: float) -> FrameData:
+        """Build the per-frame record carrying the raw image; extraction is
+        dispatched by `_ensure_feats`."""
+        img = np.asarray(img)
+        if img.dtype != np.uint8:
+            img = np.clip(img, 0, 255).astype(np.uint8)
+        n = self.cfg.orb.n_features
+        return FrameData(
+            frame_id=self.frame_id,
+            timestamp=timestamp,
+            img_u8=img,
+            lm_idx=np.full(n, -1, np.int32),
+            ur=np.full(n, -1.0, np.float32),
+            depth=np.full(n, -1.0, np.float32),
+        )
+
+    def _ensure_feats(self, frame: FrameData):
+        """Dispatch extraction + undistortion; results stay on the device
+        (host copies materialize lazily in one batched fetch)."""
+        if frame._feats_dev is not None or frame.img_u8 is None:
+            return
+        with self.timers.span("orb_extract"):
+            host = torch.from_numpy(np.ascontiguousarray(frame.img_u8))
+            if self.device.type == "cuda":
+                host = host.pin_memory().to(self.device, non_blocking=True)
+            feats = orb.extract_orb(host.to(torch.float32), self.cfg.orb)
+        frame._feats_dev = feats
+        frame._xy_dev = undistort_points(self.cam, feats.xy)
+        frame.img_u8 = None
+
+    # ------------------------------------------------------------------
+    # Public API
+    # ------------------------------------------------------------------
+
+    def track(self, img: np.ndarray, timestamp: float) -> np.ndarray | None:
+        """Monocular frame; returns 4x4 Tcw or None while initializing/lost."""
+        frame = self._extract(img, timestamp)
+        return self._process(frame)
+
+    def _process(self, frame: FrameData) -> np.ndarray | None:
+        self._ensure_feats(frame)
+        if self.state in (TrackState.NO_IMAGES_YET, TrackState.NOT_INITIALIZED):
+            self._initialize(frame)
+        elif self.state == TrackState.OK:
+            self._track_frame(frame)
+        else:
+            # Relocalization is not ported: a lost tracker stays lost.
+            self.n_lost_frames += 1
+        self.frame_id += 1
+        if frame.R is not None:
+            self._record_trajectory(frame)
+            T = np.eye(4, dtype=np.float32)
+            T[:3, :3] = frame.R
+            T[:3, 3] = frame.t
+            return T
+        return None
+
+    # ------------------------------------------------------------------
+    # Initialization (MonocularInitialization)
+    # ------------------------------------------------------------------
+
+    def _initialize(self, frame: FrameData):
+        n_feat = int(frame.valid.sum())
+        if self.init_ref is None or n_feat < self.cfg.init_min_matches:
+            if n_feat >= self.cfg.init_min_matches:
+                self.init_ref = frame
+                self.state = TrackState.NOT_INITIALIZED
+            self.last = frame
+            return
+        ref = self.init_ref
+        xy1, _, bits1, valid1, angle1 = self._dev_feats(ref)
+        xy2, _, bits2, valid2, angle2 = self._dev_feats(frame)
+        idx_d, ok_d = match_initialization(bits1, xy1, valid1, angle1, bits2, xy2, valid2, angle2)
+        idx, ok = fetch_block((idx_d, ok_d))
+        n_matches = int(ok.sum())
+        if n_matches < self.cfg.init_min_matches:
+            # Too few: re-seed the initializer with the new frame.
+            self.init_ref = frame
+            self.last = frame
+            return
+        res = ransac.reconstruct_two_views(
+            xy1, xy2[idx_d], ok_d, self._K_dev, self._sample_hypotheses(ok_d),
+        )
+        success, R, t, points, good = fetch_block((res.success, res.R, res.t, res.points, res.good))
+        if not bool(success):
+            self.last = frame
+            return
+        self._create_initial_map(ref, frame, idx, R, t, points, good)
+        self.last = frame
+
+    def _feat_sigma2(self, level: np.ndarray) -> np.ndarray:
+        return LEVEL_SIGMA2[np.clip(level, 0, N_LEVELS - 1)]
+
+    def _create_initial_map(self, ref: FrameData, frame: FrameData, idx, R2, t2, pts, good):
+        """Two keyframes and the triangulated landmarks of a successful
+        two-view reconstruction (R2, t2, pts, good as numpy), normalized to
+        unit median depth, then a two-keyframe BA
+        (CreateInitialMapMonocular)."""
+        med_depth = float(np.median(pts[good][:, 2]))
+        if med_depth <= 0:
+            return
+        scale = 1.0 / med_depth
+        pts = pts * scale
+        t2 = t2 * scale
+
+        # Keyframe 1 at identity, keyframe 2 at (R2, t2).
+        ref.R, ref.t = np.eye(3, dtype=np.float32), np.zeros(3, np.float32)
+        frame.R, frame.t = R2.astype(np.float32), t2.astype(np.float32)
+
+        gi = np.nonzero(good)[0]  # indices into ref features
+        fi = idx[gi]  # matched feature in current frame
+        m = self.map
+        lm_ids = m.add_landmarks(
+            pos=pts[gi],
+            desc_packed=frame.desc[fi],
+            desc_i8=frame.desc_i8[fi],
+            first_kf=0,
+            level=frame.level[fi],
+            normal=np.zeros((len(gi), 3), np.float32),
+            min_dist=np.full(len(gi), 0.1, np.float32),
+            max_dist=np.full(len(gi), 100.0, np.float32),
+        )
+        ref_lm = np.full(len(ref.valid), -1, np.int32)
+        ref_lm[gi] = lm_ids
+        cur_lm = np.full(len(frame.valid), -1, np.int32)
+        cur_lm[fi] = lm_ids
+        k1 = m.add_keyframe(
+            ref.R, ref.t, ref.xy, ref.level, ref.angle, ref.desc, ref.valid,
+            ref_lm, ref.timestamp, ref.frame_id,
+        )
+        k2 = m.add_keyframe(
+            frame.R, frame.t, frame.xy, frame.level, frame.angle, frame.desc,
+            frame.valid, cur_lm, frame.timestamp, frame.frame_id,
+        )
+        m.update_landmark_stats(lm_ids)
+        frame.lm_idx = cur_lm
+        # Initial BA over both KFs (GlobalBundleAdjustemnt(20) at init).
+        self._local_ba([k1, k2], fix=[k1])
+        self.ref_kf = k2
+        self.last_kf_frame_id = frame.frame_id
+        self.velocity = None
+        self.state = TrackState.OK
+        self.n_kf_inserted = 2
+        log.info("map initialized: %d landmarks from %d matches", len(gi), len(idx))
+
+    # ------------------------------------------------------------------
+    # Frame tracking
+    # ------------------------------------------------------------------
+
+    def _predict_pose(self, frame: FrameData):
+        if self.velocity is not None and self.last.R is not None:
+            Rv, tv = self.velocity
+            frame.R = (Rv @ self.last.R).astype(np.float32)
+            frame.t = (Rv @ self.last.t + tv).astype(np.float32)
+        else:
+            frame.R = self.last.R.copy()
+            frame.t = self.last.t.copy()
+
+    def _check_replaced_in_last_frame(self):
+        """Re-point last-frame bindings at fusion survivors
+        (Tracking::CheckReplacedInLastFrame)."""
+        if self.last is None or self.last.lm_idx is None:
+            return
+        m = self.map
+        idx = self.last.lm_idx
+        bound = np.nonzero(idx >= 0)[0]
+        if len(bound) == 0:
+            return
+        with self.map_lock:
+            ids = m.resolve_replaced(idx[bound])
+            idx[bound] = np.where(m.lm_valid[ids], ids, -1)
+
+    def _track_frame(self, frame: FrameData):
+        """Per-frame OK-state tracking: the fused single-program device
+        path (one result fetch per frame). The reference hands a frame that
+        path declines to its split-phase ladder; that ladder is not ported,
+        so such a frame is a loss and is counted."""
+        self._check_replaced_in_last_frame()
+        self.n_sync_frames += 1
+        if self.last is not None and self.last.R is not None:
+            with self.timers.span("track_fused"):
+                if self._track_frame_fused(frame):
+                    return
+        self.n_fused_declined += 1
+        log.warning("tracking LOST at frame %d (fused path declined)", frame.frame_id)
+        frame.lm_idx[:] = -1
+        frame.R = None
+        frame.t = None
+        self.state = TrackState.LOST
+        self.velocity = None
+        self.last = frame
+
+    def _local_map_version(self) -> tuple:
+        """Cache key for the device local-map snapshot: anything that
+        creates/moves/merges landmarks bumps one of these. The frame-id
+        bucket bounds snapshot age: the window is anchored at the pose it
+        was built from, and a rotating camera walks out of its own snapshot
+        before the next mapping event unless the window re-centers."""
+        m = self.map
+        return (
+            m.map_id, self.n_kf_inserted, m.big_change_idx,
+            self.frame_id // self.cfg.snapshot_max_age_frames,
+        )
+
+    def _refresh_dev_local(self) -> bool:
+        """(Re)build the device-resident local-map snapshot from the
+        previous frame's local keyframes, when its version changed."""
+        ver = self._local_map_version()
+        c = self._dev_local
+        if c is not None and c["ver"] == ver:
+            return True
+        with self.map_lock:
+            return self._refresh_dev_local_locked(self.map, self.cfg.local_lm_cap, ver)
+
+    def _refresh_dev_local_locked(self, m, cap, ver) -> bool:
+        last_bound = np.unique(self.last.lm_idx[self.last.lm_idx >= 0])
+        last_bound = last_bound[m.lm_valid[last_bound]]
+        local_kfs = self._local_keyframes(self.last)
+        # K2 expansion (UpdateLocalKeyFrames): covisible neighbours of the
+        # strongest sharers extend the window ahead of the motion.
+        if len(local_kfs):
+            k2 = [local_kfs]
+            for k1 in local_kfs[:3]:
+                neigh, _ = m.covisible_keyframes(int(k1), min_weight=15, top=5)
+                k2.append(neigh)
+            local_kfs = np.unique(np.concatenate(k2))
+        lm_ids = m.local_map_landmarks(local_kfs)
+        # Frustum augmentation: add every map landmark that projects into a
+        # widened window around the last pose, so that a weak frame cannot
+        # thin its own snapshot.
+        if self.last.R is not None:
+            ids_all = np.nonzero(m.lm_valid)[0]
+            if len(ids_all):
+                pc = m.lm_pos[ids_all] @ self.last.R.T + self.last.t
+                z = np.maximum(pc[:, 2], 1e-6)
+                u = self.fx * pc[:, 0] / z + self.cx
+                v = self.fy * pc[:, 1] / z + self.cy
+                wmar = 0.3 * self.cfg.width
+                hmar = 0.3 * self.cfg.height
+                okf = (
+                    (pc[:, 2] > 0.05)
+                    & (u >= -wmar) & (u < self.cfg.width + wmar)
+                    & (v >= -hmar) & (v < self.cfg.height + hmar)
+                )
+                lm_ids = np.union1d(lm_ids, ids_all[okf])
+        # Last-frame-bound landmarks first so capacity truncation can never
+        # drop the stage-1 carry set.
+        rest = np.setdiff1d(lm_ids, last_bound)
+        lm_ids = np.concatenate([last_bound, rest])[:cap]
+        n = len(lm_ids)
+        if n < 30:
+            self._dev_local = None
+            return False
+        pad = cap - n
+
+        def padf(x, fill=0):
+            return np.concatenate([x, np.full((pad, *x.shape[1:]), fill, x.dtype)])
+
+        self._dev_local = {
+            "ver": ver,
+            "ids": lm_ids,
+            "pos": self._put(padf(m.lm_pos[lm_ids])),
+            "normal": self._put(padf(m.lm_normal[lm_ids])),
+            "mind": self._put(padf(m.lm_min_dist[lm_ids])),
+            "maxd": self._put(padf(m.lm_max_dist[lm_ids], 1.0)),
+            "desc": self._put(padf(m.lm_desc[lm_ids]), np.int64),
+            "valid": self._put(padf(m.lm_valid[lm_ids], False)),
+        }
+        return True
+
+    def _track_frame_fused(self, frame: FrameData) -> bool:
+        """One-dispatch tracking against the device-resident local map
+        (refreshed on map change, bounded-stale between): run
+        fused_track_stages, fetch the small result block. Returns False
+        when the frame cannot be tracked this way."""
+        m = self.map
+        cap = self.cfg.local_lm_cap
+        last_bound = np.unique(self.last.lm_idx[self.last.lm_idx >= 0])
+        last_bound = last_bound[m.lm_valid[last_bound]]
+        if len(last_bound) < 10:
+            return False
+        if not self._refresh_dev_local():
+            return False
+        c = self._dev_local
+        lm_ids = c["ids"]
+        n = len(lm_ids)
+        stage1 = np.zeros(cap, bool)
+        stage1[:n] = np.isin(lm_ids, last_bound)
+        if not stage1.any():
+            return False
+        self._predict_pose(frame)
+        f_xy, f_level, f_bits, f_valid, _ = self._dev_feats(frame)
+        from .device_step import fused_track_stages  # lazy: import cycle
+
+        out = fused_track_stages(
+            f_xy, f_level, f_bits, f_valid,
+            self._put(frame.R), self._put(frame.t),
+            c["pos"], c["normal"], c["mind"], c["maxd"], c["desc"], c["valid"],
+            self._put(stage1), self.cfg.min_track_matches,
+            self.fx, self.fy, self.cx, self.cy,
+            float(self.cfg.width), float(self.cfg.height),
+        )
+        R, t, idx_m, mok_m, inl, n_in, n_s1, vis = fetch_block(out)
+        n_in = int(n_in)
+        log.debug(
+            "frame %d fused: %d local-lms, %d stage1, %d inliers", frame.frame_id, n, int(n_s1), n_in,
+        )
+        if n_in < self._min_accept_inliers():
+            return False
+        frame.R = R
+        frame.t = t
+        sel = np.nonzero(mok_m & inl)[0]
+        sel = sel[sel < n]
+        with self.map_lock:
+            # Forward snapshot-stale (fused-away) ids to survivors; drop
+            # only truly dead landmarks.
+            ids_r = m.resolve_replaced(lm_ids)
+            sel = sel[m.lm_valid[ids_r[sel]]]
+            frame.lm_idx[:] = -1
+            frame.lm_idx[idx_m[sel]] = ids_r[sel]
+            vis_ids = ids_r[vis[:n]]
+            m.lm_visible[vis_ids[m.lm_valid[vis_ids]]] += 1
+            m.lm_found[ids_r[sel]] += 1
+        self._finish_tracked_frame(frame, n_in)
+        return True
+
+    def _min_accept_inliers(self) -> int:
+        """TrackLocalMap acceptance floor (reference: 30)."""
+        return self.cfg.min_localmap_inliers
+
+    def _finish_tracked_frame(self, frame: FrameData, n_in: int):
+        """Post-track bookkeeping: motion model update, keyframe policy,
+        last-frame state."""
+        m = self.map
+        self.state = TrackState.OK
+        self._last_n_in = n_in
+        # Motion model: velocity = Tcw_cur * Twc_last.
+        Rl_inv, tl_inv = np.asarray(self.last.R).T, -np.asarray(self.last.R).T @ self.last.t
+        self.velocity = (
+            (frame.R @ Rl_inv).astype(np.float32),
+            (frame.R @ tl_inv + frame.t).astype(np.float32),
+        )
+
+        # Keyframe policy (NeedNewKeyFrame, simplified thresholds).
+        ref_tracked = int((m.kf_lm_idx[self.ref_kf] >= 0).sum())
+        frames_since_kf = frame.frame_id - self.last_kf_frame_id
+        need = (
+            frames_since_kf >= self.cfg.kf_max_interval
+            or (
+                n_in < self.cfg.kf_ref_ratio * ref_tracked
+                and frames_since_kf >= self.cfg.kf_min_interval
+            )
+        ) and n_in > 15
+        if need:
+            with self.timers.span("new_kf"):
+                self._insert_keyframe(frame)
+        self.last = frame
+
+    def _kf_bits(self, k: int) -> np.ndarray:
+        """Unpack a keyframe's stored packed descriptors to int8 bits."""
+        return np.unpackbits(self.map.kf_desc[k].view(np.uint8), axis=-1, bitorder="little").astype(np.int8)
+
+    def _local_keyframes(self, frame: FrameData) -> np.ndarray:
+        """K1 = KFs sharing landmarks with the frame, ranked by overlap;
+        the top sharer becomes the reference KF (UpdateLocalKeyFrames)."""
+        m = self.map
+        bound = frame.lm_idx[frame.lm_idx >= 0]
+        if len(bound) == 0:
+            return np.zeros(0, np.int64)
+        counts = m.obs[:, bound].sum(axis=1)
+        counts[~m.kf_valid] = 0
+        order = np.argsort(-counts)
+        k1 = order[: self.cfg.local_window_kfs]
+        k1 = k1[counts[k1] > 0]
+        if len(k1):
+            self.ref_kf = int(k1[0])
+        return k1
+
+    # ------------------------------------------------------------------
+    # Mapping (LocalMapping::Run main steps, synchronous)
+    # ------------------------------------------------------------------
+
+    def _insert_keyframe(self, frame: FrameData):
+        """Keyframe insertion (CreateNewKeyFrame) followed by the mapping
+        step on the same thread."""
+        m = self.map
+        with self.map_lock:
+            try:
+                k = m.add_keyframe(
+                    frame.R, frame.t, frame.xy, frame.level, frame.angle,
+                    frame.desc, frame.valid, frame.lm_idx, frame.timestamp,
+                    frame.frame_id, ur=frame.ur, depth=frame.depth,
+                )
+            except RuntimeError:
+                # Keyframe capacity exhausted: cull around the reference KF
+                # and skip this insertion.
+                log.warning(
+                    "keyframe capacity exhausted (%d slots); culling and skipping insertion", m.cfg.max_keyframes,
+                )
+                if self.ref_kf >= 0 and m.kf_valid[self.ref_kf]:
+                    self._cull_keyframes(self.ref_kf)
+                return
+            self.last_kf_frame_id = frame.frame_id
+            self.ref_kf = k
+            self.n_kf_inserted += 1
+            self._reanchor_trajectory_records(k)
+        self._mapping_step(k, map_ref=m)
+
+    def _mapping_step(self, k: int, map_ref: MapState):
+        """The LocalMapping work for one keyframe (LocalMapping::Run loop
+        body): triangulate, fuse, cull landmarks, window BA, cull
+        keyframes."""
+        m = map_ref
+        if m is not self.map or not m.kf_valid[k]:
+            return
+        with self.timers.span("map_step"):
+            neigh, _ = m.covisible_keyframes(k, min_weight=15, top=self.cfg.local_window_kfs)
+            # Triangulation pair set = temporally newest keyframes first,
+            # then the strongest covisibles: at the map frontier the
+            # covisible list points backward. The baseline-ratio gate in
+            # _triangulate_dispatch protects mono scale from the
+            # short-baseline recent pairs.
+            valid = np.nonzero(m.kf_valid)[0]
+            valid = valid[valid != k]
+            recent = valid[np.argsort(-m.kf_frame_id[valid])][: self.cfg.tri_recent_first]
+            seen_r = {int(x) for x in recent}
+            tri_neigh = np.asarray(
+                [int(x) for x in recent] + [int(x) for x in neigh if int(x) not in seen_r], np.int64,
+            )
+
+            # Both mapping device programs are dispatched up front, as in
+            # the reference: fusion projects the pre-triangulation landmark
+            # set, so this keyframe's new points get their duplicate check
+            # one keyframe later.
+            with self.timers.span("map_triangulate_dispatch"):
+                tri = self._triangulate_dispatch(k, tri_neigh)
+            with self.map_lock:
+                with self.timers.span("map_fuse_dispatch"):
+                    fuse = self._fuse_dispatch(k)
+
+            # Refresh normals/descriptors of the tracked bindings
+            # (ProcessNewKeyFrame's UpdateNormalAndDepth).
+            with self.timers.span("map_stats"):
+                seen = m.kf_lm_idx[k][m.kf_lm_idx[k] >= 0]
+                m.update_landmark_stats(np.unique(seen))
+
+            with self.timers.span("map_triangulate"):
+                new_ids = self._triangulate_apply(tri)
+            if new_ids:
+                with self.timers.span("map_stats"):
+                    m.update_landmark_stats(np.asarray(new_ids))
+
+            if fuse is not None:
+                with self.timers.span("map_fuse"):
+                    self._fuse_apply(fuse)
+            # Cull weak recent landmarks (MapPointCulling).
+            with self.map_lock:
+                with self.timers.span("map_cull_lm"):
+                    self._cull_landmarks(k)
+            # Window BA on every keyframe.
+            window = [k] + [int(x) for x in neigh[: self.cfg.ba_kf_cap - 1]]
+            with self.timers.span("map_local_ba_dispatch"):
+                ba_ctx = self._local_ba_dispatch(window, iters=self.cfg.ba_iters_per_kf)
+
+            # Redundant-keyframe culling (LocalMapping::KeyFrameCulling).
+            with self.map_lock:
+                with self.timers.span("map_cull_kf"):
+                    self._cull_keyframes(k)
+
+            if ba_ctx is not None:
+                with self.timers.span("map_local_ba"):
+                    self._local_ba_apply(ba_ctx)
+        log.info(
+            "KF %d mapped: %d new lms, map: %d KFs / %d lms", k, len(new_ids), m.n_keyframes(), m.n_landmarks(),
+        )
+
+    def _scene_median_depth(self, k: int) -> float:
+        """Median depth of a keyframe's bound landmarks in its own frame
+        (KeyFrame::ComputeSceneMedianDepth)."""
+        m = self.map
+        lm2 = m.kf_lm_idx[k]
+        lm2 = lm2[lm2 >= 0]
+        if len(lm2) == 0:
+            return 1.0
+        z = m.lm_pos[lm2] @ m.kf_R[k][2] + m.kf_t[k][2]
+        return max(float(np.median(z)), 1e-6)
+
+    def _triangulate_dispatch(self, k1: int, neigh):
+        """Dispatch half of the covisible-pair triangulation
+        (LocalMapping::CreateNewMapPoints): enqueue one
+        fused_triangulate_store program for all neighbour pairs and return
+        the un-fetched device handles."""
+        m = self.map
+        T = self.cfg.triangulate_neighbors
+        cand = [int(x) for x in neigh]
+        if not cand:
+            return None
+        # Baseline-vs-depth gate over the whole candidate pool, before the
+        # T pair slots are assigned (the reference skips short baselines,
+        # ratio vs the neighbour's scene median depth).
+        c1 = -m.kf_R[k1].T @ m.kf_t[k1]
+        ver = (m.map_id, m.big_change_idx)
+        if ver != self._kf_med_depth_ver:
+            self._kf_med_depth[:] = 0.0
+            self._kf_med_depth_ver = ver
+        self._kf_med_depth[k1] = self._scene_median_depth(k1)
+        ksa = np.asarray(cand)
+        c2s = -np.einsum("kji,kj->ki", m.kf_R[ksa], m.kf_t[ksa])
+        baselines = np.linalg.norm(c2s - c1[None, :], axis=1)
+        meds = self._kf_med_depth[ksa]
+        for j in np.nonzero(meds <= 0)[0]:
+            meds[j] = self._kf_med_depth[ksa[j]] = self._scene_median_depth(int(ksa[j]))
+        ratio = baselines / np.maximum(meds, 1e-6)
+        sel = np.nonzero(ratio >= 0.01)[0][:T]
+        if len(sel) == 0:
+            return None
+        ks = [cand[i] for i in sel]
+        pair_ok = np.zeros(T, bool)
+        pair_ok[: len(ks)] = True
+        arr = np.asarray(ks + [ks[0]] * (T - len(ks)))
+        free1 = m.kf_feat_valid[k1] & (m.kf_lm_idx[k1] < 0)
+        free2 = m.kf_feat_valid[arr] & (m.kf_lm_idx[arr] < 0)
+        with self.map_lock:
+            s = self._kf_store
+            s.sync(m, [k1, *arr])
+        out = fused_triangulate_store(
+            s.desc, s.xy, s.level, s.angle, s.depth, s.ur,
+            int(k1), self._put(arr, np.int64),
+            self._put(m.kf_R[k1]), self._put(m.kf_t[k1]),
+            self._put(m.kf_R[arr]), self._put(m.kf_t[arr]),
+            self._put(free1), self._put(free2),
+            self._put(pair_ok), self._K_dev, float(self.cfg.bf),
+        )
+        return (k1, ks, pair_ok, free1, out, m.big_change_idx)
+
+    def _triangulate_apply(self, ctx) -> list[int]:
+        """Fetch half: land the triangulation results and allocate landmark
+        slots with cross-pair feature dedup (a feature binds at its first
+        successful pair)."""
+        if ctx is None:
+            return []
+        k1, ks, pair_ok, free1, out, big0 = ctx
+        m = self.map
+        f1s, f2s, Xs, n_match = fetch_block(out)
+        if m.big_change_idx != big0:
+            return []
+        if log.isEnabledFor(logging.DEBUG):
+            log.debug(
+                "tri KF %d: %d free, matches %s, accepted %s", k1, int(free1.sum()),
+                [int(x) for x in n_match[: len(ks)]], [int((f1s[j] >= 0).sum()) for j in range(len(ks))],
+            )
+        new_ids: list[int] = []
+        bound1 = ~free1
+        bits1 = self._kf_bits(k1)
+        for j, k2 in enumerate(ks):
+            if not pair_ok[j]:
+                continue
+            row = f1s[j]
+            keep = np.nonzero((row >= 0) & ~bound1[np.maximum(row, 0)])[0]
+            if len(keep) == 0:
+                continue
+            f1 = row[keep]
+            f2 = f2s[j][keep]
+            with self.map_lock:
+                try:
+                    ids = m.add_landmarks(
+                        pos=Xs[j][keep],
+                        desc_packed=m.kf_desc[k1, f1],
+                        desc_i8=bits1[f1],
+                        first_kf=k1,
+                        level=m.kf_level[k1, f1],
+                        normal=np.zeros((len(f1), 3), np.float32),
+                        min_dist=np.full(len(f1), 0.1, np.float32),
+                        max_dist=np.full(len(f1), 100.0, np.float32),
+                    )
+                except RuntimeError:
+                    return new_ids
+                m.add_observation(k1, f1, ids)
+                m.add_observation(k2, f2, ids)
+            bound1[f1] = True
+            new_ids.extend(int(i) for i in ids)
+        return new_ids
+
+    def _apply_fuse_matches(self, lm_ids: np.ndarray, kf: int, lm_slots: np.ndarray, feats: np.ndarray) -> int:
+        """Merge bookkeeping for compacted fuse matches (lm_slot into
+        `lm_ids`, feature index; slot -1 = padding) into keyframe `kf` (the
+        host half of ORBmatcher::Fuse, MapPoint::Replace policy): a match
+        bound to a different landmark merges into whichever has more
+        observations; an unbound match gains an observation."""
+        m = self.map
+        n_fused = 0
+        n_ids = len(lm_ids)
+        for j in np.nonzero((lm_slots >= 0) & (lm_slots < n_ids))[0]:
+            lm = int(lm_ids[lm_slots[j]])
+            if not m.lm_valid[lm]:
+                continue  # merged away earlier in this loop
+            f = int(feats[j])
+            cur = int(m.kf_lm_idx[kf, f])
+            if cur == lm:
+                continue
+            if cur >= 0 and m.lm_valid[cur]:
+                # Positional sanity on merges: gate laterally at ~2% of
+                # depth, along the ray at ~25% (triangulation noise is
+                # anisotropic).
+                cc = -m.kf_R[kf].T @ m.kf_t[kf]
+                ray = m.lm_pos[cur] - cc
+                depth = max(float(np.linalg.norm(ray)), 1e-3)
+                ray = ray / depth
+                delta = m.lm_pos[lm] - m.lm_pos[cur]
+                along = float(delta @ ray)
+                perp = float(np.linalg.norm(delta - along * ray))
+                if perp > 0.02 * depth or abs(along) > 0.25 * depth:
+                    continue
+                if m.lm_obs_count[cur] >= m.lm_obs_count[lm]:
+                    m.replace_landmark(lm, cur)
+                else:
+                    m.replace_landmark(cur, lm)
+            else:
+                m.add_observation(kf, np.asarray([f]), np.asarray([lm]))
+            n_fused += 1
+        return n_fused
+
+    def _fuse_dispatch(self, k: int):
+        """Dispatch half of duplicate-landmark fusion
+        (LocalMapping::SearchInNeighbors): project the new KF's landmarks
+        into its first- and second-order covisible keyframes and the
+        neighbourhood's landmarks back into the new KF. Enqueues one
+        fused_fuse_store program over a fixed 16 target rows and returns
+        the un-fetched handles for _fuse_apply."""
+        m = self.map
+        n1, _ = m.covisible_keyframes(k, min_weight=15, top=10)
+        targets: list[int] = []
+        seen = {int(k)}
+        for n in [int(x) for x in n1]:
+            if n not in seen:
+                targets.append(n)
+                seen.add(n)
+            n2, _ = m.covisible_keyframes(n, min_weight=15, top=5)
+            for nn in [int(x) for x in n2]:
+                if nn not in seen:
+                    targets.append(nn)
+                    seen.add(nn)
+        targets = targets[:12]
+        if not targets:
+            return None
+        cur_lms = m.kf_lm_idx[k]
+        cur_lms = np.unique(cur_lms[cur_lms >= 0])
+        cur_lms = cur_lms[m.lm_valid[cur_lms]]
+        fuse_lms = m.kf_lm_idx[np.asarray(targets)]
+        fuse_lms = np.unique(fuse_lms[fuse_lms >= 0])
+        fuse_lms = fuse_lms[m.lm_valid[fuse_lms]]
+        cap = self.cfg.local_lm_cap
+        # New-KF landmarks first so capacity truncation drops fusion
+        # candidates, not the landmarks being fused.
+        ids = np.concatenate([cur_lms, np.setdiff1d(fuse_lms, cur_lms)])[:cap]
+        n_ids = len(ids)
+        if n_ids == 0:
+            return None
+        T_CAP = 16
+        rows = [int(x) for x in targets] + [int(k)]
+        nT = len(rows)
+        arr = np.asarray(rows + [rows[0]] * (T_CAP - nT))
+        s = self._kf_store
+        s.sync(m, arr)  # called under the map lock
+        cur_mask = np.zeros(cap, bool)
+        cur_mask[:n_ids] = np.isin(ids, cur_lms)
+        fuse_mask = np.zeros(cap, bool)
+        fuse_mask[:n_ids] = np.isin(ids, fuse_lms)
+        is_last = np.zeros(T_CAP, bool)
+        is_last[nT - 1] = True
+        # Landmark geometry packed into one (L,8) upload.
+        geom = np.zeros((cap, 8), np.float32)
+        geom[:n_ids, 0:3] = m.lm_pos[ids]
+        geom[:n_ids, 3:6] = m.lm_normal[ids]
+        geom[:n_ids, 6] = m.lm_min_dist[ids]
+        geom[:n_ids, 7] = m.lm_max_dist[ids]
+        geom[n_ids:, 7] = 1.0
+        lm_desc = np.zeros((cap, 8), np.int64)
+        lm_desc[:n_ids] = m.lm_desc[ids]
+        lm_val = np.zeros(cap, bool)
+        lm_val[:n_ids] = m.lm_valid[ids]
+
+        out = fused_fuse_store(
+            self._put(geom), self._put(lm_desc), self._put(lm_val),
+            self._put(cur_mask), self._put(fuse_mask), self._put(is_last),
+            s.desc, s.xy, s.level, s.valid,
+            self._put(arr, np.int64),
+            self._put(m.kf_R[arr]), self._put(m.kf_t[arr]),
+            self.fx, self.fy, self.cx, self.cy,
+            float(self.cfg.width), float(self.cfg.height),
+        )
+        return (k, ids, rows, nT, n_ids, out, m.big_change_idx)
+
+    def _fuse_apply(self, ctx):
+        """Fetch half of duplicate-landmark fusion: land the match tables
+        and run the merge bookkeeping."""
+        if ctx is None:
+            return
+        k, ids, rows, nT, n_ids, out, big0 = ctx
+        m = self.map
+        slots_b, feats_b = fetch_block(out)
+        if m.big_change_idx != big0:
+            return
+        with self.map_lock:
+            n_fused = 0
+            for j in range(nT):
+                n_fused += self._apply_fuse_matches(ids, rows[j], slots_b[j], feats_b[j])
+            self.n_fused_last = n_fused
+            if n_fused:
+                # Refresh descriptors/normals of everything the new KF sees.
+                cur = m.kf_lm_idx[k]
+                m.update_landmark_stats(np.unique(cur[cur >= 0]))
+                log.debug("fused %d duplicate landmarks around KF %d", n_fused, k)
+
+    def _cull_keyframes(self, k: int):
+        """Remove covisible keyframes whose landmarks are >= 90% redundant:
+        seen by >= 3 other keyframes at the same or finer scale
+        (LocalMapping::KeyFrameCulling)."""
+        m = self.map
+        neigh, _ = m.covisible_keyframes(k, min_weight=15)
+        if len(neigh) == 0:
+            return
+        valid_ids = np.nonzero(m.kf_valid)[0]
+        fid_min = int(m.kf_frame_id[valid_ids].min())
+        red_th = 0.9
+        # Work bound per insertion, lifted under capacity pressure so the
+        # fixed-capacity map cannot grow into exhaustion.
+        occupancy = len(valid_ids) / m.cfg.max_keyframes
+        max_cull = 2 if occupancy < 0.7 else 8
+        n_culled = 0
+        for kf in [int(x) for x in neigh]:
+            if n_culled >= max_cull:
+                break
+            if kf in (k, self.ref_kf, self.last_kf_slot):
+                continue
+            if int(m.kf_frame_id[kf]) == fid_min:  # map origin
+                continue
+            lm = m.kf_lm_idx[kf]
+            f = np.nonzero(lm >= 0)[0]
+            if len(f) < 10:
+                continue
+            lm_sel = lm[f]
+            lvl_kf = m.kf_level[kf, f]
+            obs_kfs = np.nonzero(m.obs[:, lm_sel].any(axis=1) & m.kf_valid)[0]
+            count = np.zeros(len(lm_sel), np.int32)
+            for k2 in obs_kfs:
+                if k2 == kf:
+                    continue
+                lut = np.full(m.cfg.max_landmarks, -1, np.int32)
+                fv = np.nonzero(m.kf_lm_idx[k2] >= 0)[0]
+                lut[m.kf_lm_idx[k2, fv]] = m.kf_level[k2, fv]
+                l2 = lut[lm_sel]
+                count += ((l2 >= 0) & (l2 <= lvl_kf + 1)).astype(np.int32)
+            redundant = count >= 3
+            if redundant.mean() < red_th:
+                continue
+            self._remove_keyframe_full(kf)
+            n_culled += 1
+        if n_culled:
+            log.info("culled %d redundant keyframes", n_culled)
+
+    def _remove_keyframe_full(self, kf: int):
+        """Cull one keyframe: re-anchor the trajectory entries that
+        reference it onto its strongest covisible neighbour, then remove it
+        from the map."""
+        m = self.map
+        nb, _ = m.covisible_keyframes(kf, min_weight=1, top=1)
+        rep = int(nb[0]) if len(nb) else int(m.kf_prev[kf])
+        if rep >= 0 and m.kf_valid[rep]:
+            R_rp = m.kf_R[kf] @ m.kf_R[rep].T
+            t_rp = m.kf_t[kf] - R_rp @ m.kf_t[rep]
+            for i, (fid, t, mid, rk, R_cr, t_cr) in enumerate(self.trajectory):
+                if mid == m.map_id and rk == kf:
+                    self.trajectory[i] = (
+                        fid, t, mid, rep,
+                        (R_cr @ R_rp).astype(np.float32),
+                        (R_cr @ t_rp + t_cr).astype(np.float32),
+                    )
+        self._kf_med_depth[kf] = 0.0  # slot may be reused
+        m.remove_keyframe(kf)
+
+    def _cull_landmarks(self, k: int | None = None):
+        """Remove recent landmarks with a poor found/visible ratio or too
+        few observations (LocalMapping::MapPointCulling); only points
+        younger than ~3 keyframes are ratio-culled."""
+        m = self.map
+        cur_fid = int(m.kf_frame_id[k]) if k is not None and m.kf_valid[k] else self.frame_id
+        age = cur_fid - m.lm_birth_fid  # frames since creation
+        young = (m.lm_birth_fid >= 0) & (age <= 12)
+        ratio = m.lm_found / np.maximum(m.lm_visible, 1)
+        weak = m.lm_valid & young & (
+            ((ratio < 0.25) & (m.lm_visible > 3))
+            | ((m.lm_obs_count < 2) & (m.lm_visible > 6) & (age >= 6))
+        )
+        ids = np.nonzero(weak)[0]
+        if len(ids):
+            m.remove_landmarks(ids)
+        # Capacity pressure: above 90% occupancy, also drop the
+        # worst-observed landmarks so slots never run out mid-sequence.
+        n_valid = int(m.lm_valid.sum())
+        cap = m.cfg.max_landmarks
+        if n_valid > 0.9 * cap:
+            score = np.where(m.lm_valid, m.lm_obs_count * 10 + m.lm_found, np.iinfo(np.int32).max)
+            n_drop = n_valid - int(0.8 * cap)
+            drop = np.argsort(score)[:n_drop]
+            m.remove_landmarks(drop[m.lm_valid[drop]])
+            log.info("landmark capacity pressure: dropped %d weakest", n_drop)
+
+    def _local_ba(self, window: list[int], fix: list[int] | None = None, iters: int = 10):
+        """Assemble a fixed-capacity BAProblem from the window and run it
+        (dispatch + apply back to back)."""
+        self._local_ba_apply(self._local_ba_dispatch(window, fix, iters))
+
+    def _local_ba_dispatch(self, window: list[int], fix: list[int] | None = None, iters: int = 10):
+        """Assemble the window BA problem, padded to the configured caps,
+        and enqueue one LM schedule on the tracker's device; returns the
+        un-fetched handles for _local_ba_apply."""
+        from ..optim.local_ba import BAProblem, local_ba
+
+        m = self.map
+        cfg = self.cfg
+        window = list(dict.fromkeys(window))[: cfg.ba_kf_cap]
+        # Landmarks seen by the window.
+        lms = m.local_map_landmarks(np.asarray(window, np.int64))[: cfg.ba_lm_cap]
+        if len(lms) < 8 or len(window) < 2:
+            return None
+        # Fixed KFs: other KFs observing these landmarks (boundary).
+        other = m.obs[:, lms].any(axis=1) & m.kf_valid
+        other[window] = False
+        fixed_extra = np.nonzero(other)[0][: cfg.ba_fixed_cap]
+        kfs = np.asarray(window + [int(x) for x in fixed_extra], np.int64)
+        K_n = cfg.ba_kf_cap + cfg.ba_fixed_cap
+        pad_k = K_n - len(kfs)
+
+        kf_fixed = np.zeros(len(kfs), bool)
+        kf_fixed[len(window):] = True
+        if fix:
+            for f in fix:
+                kf_fixed[np.nonzero(kfs == f)[0]] = True
+        # Gauge anchor: the map-origin KF is always held fixed when it
+        # participates (LocalBundleAdjustment fixes the init KF).
+        valid_ids = np.nonzero(m.kf_valid)[0]
+        origin = int(valid_ids[np.argmin(m.kf_frame_id[valid_ids])])
+        kf_fixed[kfs == origin] = True
+        if not kf_fixed.any():
+            # No fixed camera at all: abort like the reference.
+            return None
+
+        lm_lookup = np.full(m.cfg.max_landmarks, -1, np.int64)
+        lm_lookup[lms] = np.arange(len(lms))
+
+        # Gather observations, batched over the whole window.
+        lm_sub = m.kf_lm_idx[kfs]  # (Kk, N)
+        li = lm_lookup[np.maximum(lm_sub, 0)]
+        sel2 = (lm_sub >= 0) & (li >= 0)
+        ki_idx, f_idx = np.nonzero(sel2)
+        kf_rows = kfs[ki_idx]
+        o_kf = ki_idx
+        o_lm = li[ki_idx, f_idx]
+        o_uv = (m.kf_xy[kf_rows, f_idx] - [self.cx, self.cy]).astype(np.float32)
+        o_sig = self._feat_sigma2(m.kf_level[kf_rows, f_idx])
+        ur_raw = m.kf_ur[kf_rows, f_idx]
+        o_ur = (ur_raw - self.cx).astype(np.float32)
+        o_st = ur_raw >= 0
+        if len(o_kf) > cfg.ba_obs_cap:
+            keep = informed_obs_drop(o_lm, cfg.ba_obs_cap, np.random.default_rng(0))
+            o_kf, o_lm, o_uv, o_sig = o_kf[keep], o_lm[keep], o_uv[keep], o_sig[keep]
+            o_ur, o_st = o_ur[keep], o_st[keep]
+        pad_o = cfg.ba_obs_cap - len(o_kf)
+        pad_l = cfg.ba_lm_cap - len(lms)
+
+        def padk(x, fill=0):
+            return np.concatenate([x, np.full((pad_k, *x.shape[1:]), fill, x.dtype)])
+
+        put = self._put
+        prob = BAProblem(
+            R=put(padk(m.kf_R[kfs])),
+            t=put(padk(m.kf_t[kfs])),
+            kf_valid=put(np.concatenate([np.ones(len(kfs), bool), np.zeros(pad_k, bool)])),
+            kf_fixed=put(np.concatenate([kf_fixed, np.ones(pad_k, bool)])),
+            Xw=put(np.concatenate([m.lm_pos[lms], np.zeros((pad_l, 3), np.float32)])),
+            lm_valid=put(np.concatenate([np.ones(len(lms), bool), np.zeros(pad_l, bool)])),
+            obs_kf=put(np.concatenate([o_kf, np.zeros(pad_o)]), np.int64),
+            obs_lm=put(np.concatenate([o_lm, np.zeros(pad_o)]), np.int64),
+            obs_uvr=put(
+                np.concatenate([np.concatenate([o_uv, o_ur[:, None]], 1), np.zeros((pad_o, 3), np.float32)])
+            ),
+            obs_sigma2=put(np.concatenate([o_sig, np.ones(pad_o, np.float32)])),
+            obs_stereo=put(np.concatenate([o_st, np.zeros(pad_o, bool)])),
+            obs_valid=put(np.concatenate([np.ones(len(o_kf), bool), np.zeros(pad_o, bool)])),
+            fx=self.fx, fy=self.fy, bf=float(cfg.bf),
+        )
+        # One schedule per call: the window BA runs on the tracker's own
+        # device in f32.
+        res = local_ba(prob, iters=iters, gate_at=iters // 2)
+        return (res, kfs, lms, m, m.kf_gen[kfs].copy(), m.big_change_idx)
+
+    def _local_ba_apply(self, ctx):
+        """Fetch the BA result and write it back. Keyframe rows are guarded
+        by generation, landmark rows by liveness."""
+        if ctx is None:
+            return
+        res, kfs, lms, m, gen0, big0 = ctx
+        R_new, t_new, X_new = fetch_block((res.R, res.t, res.Xw))
+        R_new = R_new[: len(kfs)]
+        t_new = t_new[: len(kfs)]
+        X_new = X_new[: len(lms)]
+        with self.map_lock:
+            if m is not self.map or m.big_change_idx != big0:
+                return
+            okk = m.kf_valid[kfs] & (m.kf_gen[kfs] == gen0)
+            m.kf_R[kfs[okk]] = R_new[okk]
+            m.kf_t[kfs[okk]] = t_new[okk]
+            okl = m.lm_valid[lms]
+            m.lm_pos[lms[okl]] = X_new[okl]
+
+    # ------------------------------------------------------------------
+    # Trajectory
+    # ------------------------------------------------------------------
+
+    def _reanchor_trajectory_records(self, k_new: int):
+        """Rebase pending relative trajectory records that ride a long
+        frame gap onto the just-inserted keyframe, composed through the
+        current poses of both anchors, so that later corrections reach
+        them. Caller holds map_lock."""
+        m = self.map
+        cap = self.cfg.max_record_gap
+        fid_new = int(m.kf_frame_id[k_new])
+        Rk, tk = m.kf_R[k_new], m.kf_t[k_new]
+        for i in range(self._traj_anchor_ptr, len(self.trajectory)):
+            fid, t, map_id, kref, R_cr, t_cr = self.trajectory[i]
+            if map_id != m.map_id or not m.kf_valid[kref]:
+                continue
+            gap = abs(fid - int(m.kf_frame_id[kref]))
+            if gap <= cap or gap <= abs(fid - fid_new):
+                continue
+            Rr, tr = m.kf_R[kref], m.kf_t[kref]
+            R_fw = R_cr @ Rr
+            t_fw = R_cr @ tr + t_cr
+            R_new = (R_fw @ Rk.T).astype(np.float32)
+            t_new = (t_fw - R_new @ tk).astype(np.float32)
+            self.trajectory[i] = (fid, t, map_id, k_new, R_new, t_new)
+        self._traj_anchor_ptr = len(self.trajectory)
+
+    def _record_trajectory(self, frame: FrameData):
+        """Store T_cam<-refKF so later KF-pose optimization propagates into
+        the exported trajectory (mlRelativeFramePoses)."""
+        k = self.ref_kf
+        with self.map_lock:
+            Rr, tr = self.map.kf_R[k].copy(), self.map.kf_t[k].copy()
+        # Tcr = Tcw * Trw^-1
+        R_cr = frame.R @ Rr.T
+        t_cr = frame.t - R_cr @ tr
+        self.trajectory.append(
+            (frame.frame_id, frame.timestamp, self.map.map_id, k, R_cr.copy(), t_cr.copy())
+        )
+
+    def export_trajectory(self):
+        """Return (timestamps, Twc 4x4 array) in the world frame, TUM-style
+        camera-to-world (SaveTrajectoryTUM semantics)."""
+        ts, poses = [], []
+        m = self.map
+        for fid, t, map_id, k, R_cr, t_cr in self.trajectory:
+            if map_id != m.map_id or not m.kf_valid[k]:
+                continue
+            R_cw = R_cr @ m.kf_R[k]
+            t_cw = R_cr @ m.kf_t[k] + t_cr
+            T = np.eye(4)
+            T[:3, :3] = R_cw.T
+            T[:3, 3] = -R_cw.T @ t_cw
+            ts.append(t)
+            poses.append(T)
+        return np.asarray(ts), np.asarray(poses)
+
+
+# The reference's name for the monocular-only API.
+MonoTracker = Tracker

@@ -5,7 +5,7 @@ x -> R @ x + t (Tcw maps world to camera). Every function broadcasts over
 leading batch dimensions and selects small-angle Taylor branches with
 `torch.where` on safe operands, as the reference does. The rest of the
 reference module (so3_log, Sim(3), right-Jacobian inverse) waits for the
-slices that need it.
+slices that need it: neither tracking nor local mapping reaches it.
 """
 
 from __future__ import annotations
@@ -124,6 +124,12 @@ def se3_exp(xi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 def se3_mul(Ra, ta, Rb, tb):
     """(Ra,ta) * (Rb,tb)."""
     return Ra @ Rb, torch.einsum("...ij,...j->...i", Ra, tb) + ta
+
+
+def se3_inv(R, t):
+    """Inverse of the rigid transform (R, t)."""
+    Rt = R.transpose(-1, -2)
+    return Rt, -torch.einsum("...ij,...j->...i", Rt, t)
 
 
 def se3_apply(R, t, x):

@@ -185,3 +185,60 @@ def test_describe_counts_on_host_and_card_and_rejects_bad_inputs(dev):
         patches.describe_keypoints([levels[0].t()], [blurred[0].t()], xys[:1])  # not contiguous
     with pytest.raises(ValueError):
         patches.describe_keypoints(levels[:1], blurred[:1], [xys[0].cpu()])  # devices differ
+
+
+def _ba_window(seed, K=8, L=256, O=2048, n_lm=220):
+    """A small window-BA problem (numpy dict), made without the reference."""
+    rng = np.random.default_rng(seed)
+    fx = fy = 420.0
+    X = np.stack([rng.uniform(-3, 3, n_lm), rng.uniform(-2, 2, n_lm), rng.uniform(4, 9, n_lm)], 1)
+    ts = np.stack([[-0.25 * k, 0.02 * k, 0.0] for k in range(K)])
+    o_kf, o_lm, o_uv = [], [], []
+    for k in range(K):
+        pc = X + ts[k]
+        uv = np.stack([fx * pc[:, 0] / pc[:, 2], fy * pc[:, 1] / pc[:, 2]], 1) + rng.normal(0, 0.5, (n_lm, 2))
+        ids = np.nonzero((np.abs(uv[:, 0]) < 320) & (np.abs(uv[:, 1]) < 240))[0]
+        o_kf += [k] * len(ids)
+        o_lm += list(ids)
+        o_uv.append(uv[ids])
+    n = len(o_kf)
+    fixed = np.zeros(K, bool)
+    fixed[[0, K - 1]] = True
+    return dict(
+        R=np.tile(np.eye(3), (K, 1, 1)), t=ts + (~fixed)[:, None] * rng.normal(0, 0.03, ts.shape),
+        kf_valid=np.ones(K, bool), kf_fixed=fixed,
+        Xw=np.concatenate([X + rng.normal(0, 0.05, X.shape), np.zeros((L - n_lm, 3))]),
+        lm_valid=np.arange(L) < n_lm,
+        obs_kf=np.concatenate([o_kf, np.zeros(O - n)]), obs_lm=np.concatenate([o_lm, np.zeros(O - n)]),
+        obs_uvr=np.concatenate([np.concatenate([np.concatenate(o_uv), np.zeros((n, 1))], 1), np.zeros((O - n, 3))]),
+        obs_sigma2=np.ones(O), obs_stereo=np.zeros(O, bool), obs_valid=np.arange(O) < n,
+        fx=fx, fy=fy, bf=0.0,
+    )
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_local_ba_on_card_is_reproducible_and_matches_cpu(dev, seed):
+    from orbslam3_cpp_fork_tpu_torch.optim.local_ba import local_ba
+
+    d = _ba_window(seed)
+    a = local_ba(convert.ba_problem_from_numpy(d, dev), iters=6, gate_at=3)
+    b = local_ba(convert.ba_problem_from_numpy(d, dev), iters=6, gate_at=3)
+    for x, y in ((a.R, b.R), (a.t, b.t), (a.Xw, b.Xw), (a.cost, b.cost)):
+        assert torch.equal(x, y), "two runs on the card give the same bits (sorted segment sums)"
+    c = local_ba(convert.ba_problem_from_numpy(d, "cpu"), iters=6, gate_at=3)
+    assert float((a.t.cpu() - c.t).abs().max()) <= 1e-4, "tolerance: t within 1e-4 of the CPU"
+    assert float((a.Xw.cpu() - c.Xw).abs().max()) <= 1e-3, "tolerance: Xw within 1e-3 of the CPU"
+    assert bool(torch.isfinite(a.cost)) and abs(float(a.cost) - float(c.cost)) <= 1e-3 * float(c.cost)
+
+
+def test_fetch_block_round_trip(dev):
+    from orbslam3_cpp_fork_tpu_torch import device as device_mod
+
+    g = torch.Generator().manual_seed(0)
+    src = [torch.rand((3, 5), generator=g), torch.randint(0, 2**40, (7,), generator=g), torch.rand(4, generator=g) < 0.5,
+           torch.tensor(17, dtype=torch.int32), torch.randint(-5, 5, (2, 3), generator=g).to(torch.int32)]
+    n0 = device_mod.n_fetches
+    out = device_mod.fetch_block([t.to(dev) for t in src])
+    assert device_mod.n_fetches == n0 + 1, "one transfer for the whole block"
+    for t, a in zip(src, out):
+        assert a.dtype == t.numpy().dtype and a.shape == tuple(t.shape) and np.array_equal(a, t.numpy())

@@ -102,3 +102,47 @@ def test_unpack_matches_reference_layout():
     ref = np.unpackbits(words.view(np.uint8), axis=-1, bitorder="little").astype(np.int8)
     got = torb.unpack_bits(torch.from_numpy(words.astype(np.int64))).numpy()
     assert np.array_equal(got, ref), "tolerance: exact"
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_rotation_consistency_exact(seed):
+    rng = np.random.default_rng(seed)
+    n, m = 200, 260
+    idx = rng.integers(0, m, n)
+    angle_b = rng.uniform(-np.pi, np.pi, m).astype(np.float32)
+    # Most matches share one rotation, some another, the rest are random.
+    rot = np.where(rng.uniform(size=n) < 0.6, 0.4, np.where(rng.uniform(size=n) < 0.5, 2.1, rng.uniform(0, 6, n)))
+    angle_a = (angle_b[idx] + rot + rng.normal(0, 0.03, n)).astype(np.float32)
+    ok = rng.uniform(size=n) < 0.8
+    ref = np.asarray(jm.rotation_consistency(jnp.asarray(angle_a), jnp.asarray(angle_b), jnp.asarray(idx), jnp.asarray(ok)))
+    got = tm.rotation_consistency(*[torch.from_numpy(x) for x in (angle_a, angle_b, idx, ok)]).numpy()
+    assert np.array_equal(got, ref), "tolerance: exact"
+    assert 0 < got.sum() < ok.sum()
+
+
+def test_rotation_consistency_ties_and_empty():
+    # Two bins with equal counts: the lower bin ranks first on both sides;
+    # and no valid match at all keeps nothing.
+    angle_b = np.zeros(8, np.float32)
+    angle_a = np.array([0.1, 0.1, 1.0, 1.0, 3.0, 3.0, 5.0, 5.0], np.float32)
+    idx = np.arange(8)
+    for ok in (np.ones(8, bool), np.zeros(8, bool)):
+        ref = np.asarray(jm.rotation_consistency(jnp.asarray(angle_a), jnp.asarray(angle_b), jnp.asarray(idx), jnp.asarray(ok)))
+        got = tm.rotation_consistency(*[torch.from_numpy(x) for x in (angle_a, angle_b, idx, ok)]).numpy()
+        assert np.array_equal(got, ref), "tolerance: exact"
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_epipolar_penalty_exact(seed):
+    rng = np.random.default_rng(seed)
+    F = rng.normal(0, 1e-3, (3, 3)).astype(np.float32)
+    F[2, 2] = 1.0
+    xy1 = rng.uniform(0, 600, (120, 2)).astype(np.float32)
+    xy2 = rng.uniform(0, 600, (150, 2)).astype(np.float32)
+    s2 = (1.2 ** (2.0 * rng.integers(0, 8, 150))).astype(np.float32) * 400
+    ref = np.asarray(jm.epipolar_penalty(jnp.asarray(F), jnp.asarray(xy1), jnp.asarray(xy2), jnp.asarray(s2)))
+    got = tm.epipolar_penalty(*[torch.from_numpy(x) for x in (F, xy1, xy2, s2)]).numpy()
+    # The mask may differ only where the squared distance sits on the
+    # threshold to the last f32 bits; on these inputs it does not.
+    assert np.array_equal(got, ref), "tolerance: exact"
+    assert 0 < (got == 0).sum() < got.size

@@ -29,12 +29,27 @@ def test_port_imports_no_jax():
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for m in mods: importlib.import_module(m)\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith(('jax.', 'jaxlib', 'orbslam3_cpp_fork_tpu.')) or k == 'orbslam3_cpp_fork_tpu')\n"
-        "assert len(mods) >= 15, mods\n"
+        "assert len(mods) >= 25, mods\n"
         "assert not bad, bad\n"
         "print(len(mods))\n"
     )
     out = _run(code)
     assert out.returncode == 0, out.stderr
+
+
+def test_no_source_line_imports_jax():
+    """No module of the port, and not the chip smoke, has an import line
+    naming JAX or the JAX package (the new mapping modules included)."""
+    import re
+
+    pat = re.compile(r"^\s*(import|from)\s+(jax|orbslam3_cpp_fork_tpu[. ])")
+    files = sorted((REPO / "orbslam3_cpp_fork_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    names = {f.relative_to(REPO).as_posix() for f in files}
+    for must in ("ops/geometry.py", "ops/ransac.py", "optim/local_ba.py", "models/map_state.py",
+                 "native/__init__.py", "runtime/tracker.py", "utils/timers.py"):
+        assert f"orbslam3_cpp_fork_tpu_torch/{must}" in names, must
+    bad = [f"{f}:{i + 1}" for f in files for i, line in enumerate(f.read_text().splitlines()) if pat.match(line)]
+    assert not bad, bad
 
 
 def test_chip_smoke_imports_no_jax():

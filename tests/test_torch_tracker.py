@@ -1,0 +1,297 @@
+"""The port's synchronous monocular Tracker (runtime/tracker.py).
+
+(a) initial map: the features of the JAX `extract_orb` on two rendered
+    frames go through both trackers' `_initialize` with the same RANSAC index
+    sets; (b) one `_mapping_step` on a map loaded into both through
+    `convert.map_state_from_numpy`; (c) the slice as a whole, port only, on
+    the scene of tests/test_tracking_e2e.py; (d) configurations outside the
+    slice are refused. A JAX-vs-port run of the whole sequence is marked
+    slow.
+
+Cut to size for the CPU: 600 features (as the reference's e2e test), a map
+of 32 keyframe and 4096 landmark slots; every other capacity is the default.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from orbslam3_cpp_fork_tpu.models import map_state as jms
+from orbslam3_cpp_fork_tpu.ops import camera as jcam
+from orbslam3_cpp_fork_tpu.ops import orb as jorb
+from orbslam3_cpp_fork_tpu.ops import ransac as jransac
+from orbslam3_cpp_fork_tpu.runtime import tracker as jt
+from orbslam3_cpp_fork_tpu_torch import convert
+from orbslam3_cpp_fork_tpu_torch.datasets import synthetic
+from orbslam3_cpp_fork_tpu_torch.models.map_state import MapConfig
+from orbslam3_cpp_fork_tpu_torch.ops.orb import OrbParams
+from orbslam3_cpp_fork_tpu_torch.runtime import tracker as tt
+from orbslam3_cpp_fork_tpu_torch.utils.evaluation import ate_rmse
+
+N_FRAMES = 40
+MAP_CFG = dict(max_keyframes=32, max_landmarks=4096)
+
+
+@pytest.fixture(scope="module")
+def sequence():
+    scene = synthetic.make_scene(seed=3)
+    Rs, ts = synthetic.smooth_trajectory(n_frames=N_FRAMES, step=0.12, yaw_rate=0.002)
+    frames = [synthetic.render_frame(scene, Rs[i], ts[i]) for i in range(N_FRAMES)]
+    return scene, Rs, ts, frames
+
+
+def port_tracker(scene, n_features, **kw):
+    K = scene.K
+    cfg = tt.TrackerConfig(
+        camera=convert.camera_from_numpy(K[0, 0], K[1, 1], K[0, 2], K[1, 2]),
+        width=scene.width, height=scene.height, orb=OrbParams(n_features=n_features),
+        async_mapping=False, enable_loop_closing=False, map_cfg=MapConfig(**MAP_CFG), **kw,
+    )
+    return tt.MonoTracker(cfg, "cpu")
+
+
+def ref_tracker(scene, n_features):
+    K = scene.K
+    cfg = jt.TrackerConfig(
+        camera=jcam.Camera.pinhole(K[0, 0], K[1, 1], K[0, 2], K[1, 2]),
+        width=scene.width, height=scene.height, orb=jorb.OrbParams(n_features=n_features),
+        async_mapping=False, enable_loop_closing=False, mapping_backend="cpu", map_cfg=jms.MapConfig(**MAP_CFG),
+    )
+    return jt.MonoTracker(cfg)
+
+
+def jax_features(img, n_features):
+    """The reference extractor's features of one frame, as host arrays."""
+    f = jorb.extract_orb_jit(jnp.asarray(np.clip(img, 0, 255).astype(np.uint8), jnp.float32), jorb.OrbParams(n_features=n_features))
+    desc = np.asarray(f.desc)
+    return dict(
+        xy=np.asarray(f.xy), level=np.asarray(f.level), angle=np.asarray(f.angle), desc=desc,
+        desc_i8=np.unpackbits(desc.view(np.uint8), axis=-1, bitorder="little").astype(np.int8),
+        valid=np.asarray(f.valid),
+    )
+
+
+def frame_of(mod, feats, frame_id, ts):
+    n = len(feats["valid"])
+    return mod.FrameData(
+        frame_id=frame_id, timestamp=ts, lm_idx=np.full(n, -1, np.int32),
+        ur=np.full(n, -1.0, np.float32), depth=np.full(n, -1.0, np.float32), **{k: v.copy() for k, v in feats.items()},
+    )
+
+
+# --------------------------------------------------------------------- (a)
+
+
+def test_initial_map_parity(sequence):
+    scene, Rs, ts, frames = sequence
+    n_feat = 600
+    f0, f1 = jax_features(frames[0], n_feat), jax_features(frames[2], n_feat)
+    ref = ref_tracker(scene, n_feat)
+    got = port_tracker(scene, n_feat)
+    # The reference draws its hypotheses from the key its first `_next_key`
+    # returns; the port gets the same index sets.
+    key = jax.random.split(jax.random.PRNGKey(0))[1]
+    got._sample_hypotheses = lambda valid: torch.from_numpy(
+        np.asarray(jransac._sample_indices(key, 256, 8, jnp.asarray(valid.numpy()))).astype(np.int64)
+    )
+    for trk, mod in ((ref, jt), (got, tt)):
+        for feats, fid in ((f0, 0), (f1, 2)):
+            frame = frame_of(mod, feats, fid, 0.05 * fid)
+            trk.frame_id = fid
+            trk._initialize(frame)
+    assert ref.state == jt.TrackState.OK and got.state == tt.TrackState.OK
+    mr, mg = ref.map, got.map
+    assert mg.n_keyframes() == mr.n_keyframes() == 2
+    assert mg.n_landmarks() == mr.n_landmarks() > 100, "same landmark count"
+    assert np.array_equal(mg.kf_lm_idx[:2], mr.kf_lm_idx[:2]), "same bindings"
+    assert np.abs(mg.kf_R[:2] - mr.kf_R[:2]).max() <= 1e-4, "tolerance: poses 1e-4"
+    assert np.abs(mg.kf_t[:2] - mr.kf_t[:2]).max() <= 1e-4, "tolerance: poses 1e-4"
+    v = mr.lm_valid
+    rel = np.linalg.norm(mg.lm_pos[v] - mr.lm_pos[v], axis=1) / np.linalg.norm(mr.lm_pos[v], axis=1)
+    assert rel.max() <= 1e-3, "tolerance: positions 1e-3 relative after the two-keyframe BA"
+    assert np.array_equal(mg.lm_desc[v], mr.lm_desc[v])
+    # Unit median depth, and the second keyframe moved.
+    z = mg.lm_pos[v][:, 2]
+    assert abs(np.median(z) - 1.0) < 0.05 and np.linalg.norm(mg.kf_t[1]) > 1e-3
+
+
+# --------------------------------------------------------------------- (c)
+
+
+@pytest.fixture(scope="module")
+def tracked(sequence):
+    """The port over the whole sequence; the map and the frame of the 5th
+    keyframe insertion are kept aside for the mapping-step test."""
+    scene, Rs, ts, frames = sequence
+    trk = port_tracker(scene, 600)
+    snap = {}
+    insert = trk._insert_keyframe
+
+    def spy(frame):
+        if trk.n_kf_inserted == 5 and not snap:
+            snap["map"] = convert.map_state_to_numpy(trk.map)
+            snap["frame"] = dict(
+                R=frame.R.copy(), t=frame.t.copy(), xy=frame.xy.copy(), level=frame.level.copy(),
+                angle=frame.angle.copy(), desc=frame.desc.copy(), valid=frame.valid.copy(),
+                lm_idx=frame.lm_idx.copy(), timestamp=frame.timestamp, frame_id=frame.frame_id,
+            )
+            snap["ref_kf"] = trk.ref_kf
+        insert(frame)
+
+    trk._insert_keyframe = spy
+    stamps = np.arange(N_FRAMES) * 0.05
+    poses = [trk.track(f, float(stamps[i])) for i, f in enumerate(frames)]
+    return trk, stamps, poses, ts, snap
+
+
+def test_cold_start_tracks_the_sequence(tracked):
+    trk, stamps, poses, ts, _ = tracked
+    assert trk.state == tt.TrackState.OK
+    assert sum(p is not None for p in poses) > 30
+    assert trk.map.n_keyframes() >= 2 and trk.map.n_landmarks() > 100
+    assert trk.n_fused_declined == 0 and trk.n_lost_frames == 0
+    m = trk.map
+    assert np.isfinite(m.kf_R[m.kf_valid]).all() and np.isfinite(m.lm_pos[m.lm_valid]).all()
+    T = next(p for p in poses if p is not None)
+    assert T.shape == (4, 4) and T.dtype == np.float32
+
+
+def test_cold_start_ate(tracked):
+    trk, stamps, poses, ts, _ = tracked
+    ts_est, Twc = trk.export_trajectory()
+    assert len(ts_est) > 30
+    res = ate_rmse(ts_est, Twc[:, :3, 3], stamps, ts)
+    # The trajectory covers ~2.4 m; the reference's own bar.
+    assert res.n_pairs > 30 and res.rmse_scaled < 0.05, res
+
+
+def test_stage_counts(tracked, sequence):
+    """The timers show one extraction per frame, one fused tracking call per
+    frame after initialization and each mapping stage once per inserted
+    keyframe."""
+    trk, _, poses, _, _ = tracked
+    s = trk.timers.summary()
+    n_ok_frames = trk.n_sync_frames
+    assert s["track_fused"]["count"] == n_ok_frames and s["orb_extract"]["count"] == N_FRAMES
+    n_steps = trk.n_kf_inserted - 2
+    assert n_steps >= 1
+    for stage in ("map_step", "map_triangulate", "map_cull_lm", "map_cull_kf", "map_local_ba"):
+        assert s[stage]["count"] == n_steps, stage
+
+
+# --------------------------------------------------------------------- (b)
+
+
+def ref_map_from_numpy(d):
+    m = jms.MapState(jms.MapConfig(n_features=d["kf_xy"].shape[1], imu_cap=d["kf_imu"].shape[1], **MAP_CFG))
+    for k in convert.MAP_ARRAYS:
+        getattr(m, k)[...] = d[k]
+    for k in convert.MAP_SCALARS:
+        setattr(m, k, d[k])
+    m.mark_obs_dirty()
+    return m
+
+
+def test_mapping_step_parity(tracked, sequence):
+    scene = sequence[0]
+    snap = tracked[4]
+    assert snap, "the sequence inserts at least six keyframes"
+    fr = snap["frame"]
+    ref, got = ref_tracker(scene, 600), port_tracker(scene, 600)
+    ref.atlas.maps[ref.atlas.active_idx] = ref_map_from_numpy(snap["map"])
+    got.map = convert.map_state_from_numpy(snap["map"])
+    new = {}
+    for name, trk in (("ref", ref), ("got", got)):
+        m = trk.map
+        n0 = m.n_landmarks()
+        k = m.add_keyframe(
+            fr["R"], fr["t"], fr["xy"], fr["level"], fr["angle"], fr["desc"], fr["valid"], fr["lm_idx"],
+            fr["timestamp"], fr["frame_id"],
+        )
+        trk.state = type(trk.state).OK
+        trk.ref_kf, trk.n_kf_inserted, trk.last_kf_frame_id, trk.frame_id = k, 6, fr["frame_id"], fr["frame_id"] + 1
+        trk._mapping_step(k, map_ref=m)
+        new[name] = (k, n0, m)
+    (kr, n0r, mr), (kg, n0g, mg) = new["ref"], new["got"]
+    assert kr == kg and n0r == n0g
+    assert np.array_equal(mg.lm_replaced, mr.lm_replaced), "same fused pairs"
+    assert np.array_equal(mg.kf_valid, mr.kf_valid), "same keyframes culled"
+    dn_r, dn_g = mr.n_landmarks() - n0r, mg.n_landmarks() - n0g
+    assert dn_r > 20 and abs(dn_g - dn_r) <= max(1, 0.01 * dn_r), "tolerance: new-landmark count within 1%"
+    assert np.mean(mg.kf_lm_idx == mr.kf_lm_idx) >= 0.999, "tolerance: bindings equal on >= 99.9% of feature slots"
+    kv = mr.kf_valid
+    moved = np.abs(mr.kf_t[kv] - snap["map"]["kf_t"][kv]).max()
+    assert moved > 1e-5, "the window BA moved the keyframes"
+    assert np.abs(mg.kf_R[kv] - mr.kf_R[kv]).max() <= 1e-4, "tolerance: BA-moved poses 1e-4"
+    assert np.abs(mg.kf_t[kv] - mr.kf_t[kv]).max() <= 1e-4, "tolerance: BA-moved poses 1e-4"
+    both = mr.lm_valid & mg.lm_valid
+    rel = np.linalg.norm(mg.lm_pos[both] - mr.lm_pos[both], axis=1) / np.linalg.norm(mr.lm_pos[both], axis=1)
+    assert np.quantile(rel, 0.99) <= 1e-3, "tolerance: positions 1e-3 relative on 99% of landmarks"
+
+
+# --------------------------------------------------------------------- (d)
+
+
+@pytest.mark.parametrize(
+    "kw,item",
+    [
+        (dict(sensor=tt.Sensor.STEREO), "A11"),
+        (dict(sensor=tt.Sensor.RGBD), "A11"),
+        (dict(sensor=tt.Sensor.IMU_MONOCULAR), "A13"),
+        (dict(imu=object()), "A13"),
+        (dict(async_mapping=True), "A9"),
+        (dict(pipeline_lag=2), "A9"),
+        (dict(enable_loop_closing=True), "A10"),
+    ],
+)
+def test_unsupported_configs_are_refused(kw, item):
+    base = dict(camera=convert.camera_from_numpy(400, 400, 320, 240), async_mapping=False, enable_loop_closing=False)
+    with pytest.raises(NotImplementedError, match=item):
+        tt.MonoTracker(tt.TrackerConfig(**{**base, **kw}), "cpu")
+    # The reference's defaults (async mapping, loop closing) are outside the slice too.
+    with pytest.raises(NotImplementedError):
+        tt.MonoTracker(tt.TrackerConfig(camera=base["camera"]), "cpu")
+
+
+def test_supported_config_and_device_default():
+    cfg = convert.tracker_config_from_reference(dict(
+        camera=dict(fx=400, fy=400, cx=320, cy=240), async_mapping=False, enable_loop_closing=False,
+        pipeline_lag=0, sensor="MONOCULAR", mapping_backend="auto", young_map_kfs=12,
+        orb=dict(n_features=300), map_cfg=dict(max_keyframes=8, max_landmarks=512),
+    ))
+    trk = tt.MonoTracker(cfg, "cpu")
+    assert trk.device == torch.device("cpu") and trk.map.cfg.n_features == 300
+    assert dataclasses.asdict(cfg)["ba_obs_cap"] == jt.TrackerConfig().ba_obs_cap
+    for f in dataclasses.fields(tt.TrackerConfig):
+        if f.name not in ("camera", "orb", "map_cfg", "sensor", "imu"):
+            assert getattr(tt.TrackerConfig(), f.name) == getattr(jt.TrackerConfig(), f.name), f.name
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError):
+            tt.MonoTracker(cfg)  # no device given means the card
+
+
+# ------------------------------------------------------------------ slow
+
+
+@pytest.mark.slow
+def test_whole_sequence_against_the_reference(tracked, sequence):
+    """The reference's MonoTracker over the same frames: both track the
+    sequence, and the two scale-aligned ATEs are printed for PERF.md."""
+    scene, Rs, ts, frames = sequence
+    trk, stamps, poses, _, _ = tracked
+    ref = ref_tracker(scene, 600)
+    ref_poses = [ref.track(np.clip(f, 0, 255).astype(np.uint8), float(stamps[i])) for i, f in enumerate(frames)]
+    res = []
+    for t in (ref, trk):
+        ts_est, Twc = t.export_trajectory()
+        res.append(ate_rmse(ts_est, Twc[:, :3, 3], stamps, ts))
+    print(f"reference: {sum(p is not None for p in ref_poses)} tracked, {ref.map.n_keyframes()} KFs, "
+          f"{ref.map.n_landmarks()} landmarks, ATE {res[0].rmse_scaled:.6f} m; port: "
+          f"{sum(p is not None for p in poses)} tracked, {trk.map.n_keyframes()} KFs, {trk.map.n_landmarks()} "
+          f"landmarks, ATE {res[1].rmse_scaled:.6f} m")
+    assert res[0].rmse_scaled < 0.05 and res[1].rmse_scaled < 0.05
+    assert abs(ref.map.n_keyframes() - trk.map.n_keyframes()) <= 3
