@@ -37,7 +37,25 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                >= 1000 landmarks at the end, a finite map, one describe
                launch per frame counted on the card, scale-aligned ATE
                within the bound. The phase runs twice and says whether both
-               runs gave the same trajectory bit for bit.
+               runs gave the same trajectory bit for bit;
+  7. async   - the same cold start in the default mode, through the System
+               facade: mapping on a worker thread, pipelined tracking
+               (pipeline_lag 2), frames free-running, then shutdown. Gates:
+               the map initializes within the first 40 frames, final state
+               OK, no loss event, > 20 pipelined frames, the worker mapped
+               keyframes on its own thread and raised nothing, > 80% of the
+               frames exported with strictly increasing timestamps, every
+               binding of a tracked frame points at a live landmark, a finite
+               map, one describe launch per frame counted on the card, and a
+               scale-aligned ATE within 2 x the slam phase's of this run +
+               0.02 m. Reports track() latency beside the synchronous run's,
+               latency of frames that overlapped a mapping step, frames per
+               second with the final flush, back-pressure skips, map-wait
+               time, catch-up batches and the worker's idle share. A second
+               part splices four black frames into a 90-frame prefix: the
+               in-flight frames are dropped and the loss ladder runs without
+               an exception (relocalization is not ported, so re-acquisition
+               is reported, not required).
 `--profile N` adds a torch.profiler pass over N frames (kernel launches and
 device time per frame, host time per stage) and over the SLAM phase's
 tracked frames and mapping steps, `--compare-routes` a timing of the tracker
@@ -83,6 +101,15 @@ SLAM_INIT_BY = 40  # the map must exist after this many frames
 SLAM_MIN_KFS = 8
 SLAM_MIN_LMS = 1000
 SLAM_PROFILE_FRAMES = 40  # frames of the SLAM phase that --profile traces
+# Async phase. The asynchronous run sees another map snapshot per frame than
+# the synchronous one (thread timing decides which), so its ATE is held
+# against the synchronous run of the same process, not against a constant.
+ASYNC_ATE_FACTOR = 2.0
+ASYNC_ATE_SLACK_M = 0.020
+ASYNC_MIN_PIPELINED = 20
+ASYNC_MIN_COVERAGE = 0.8
+LADDER_FRAMES = 90  # prefix of the ring used by the blackout part
+LADDER_BLACK = (45, 49)  # frames replaced by black images
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOPS = 67e12  # H100 SXM data sheet, float32 outside the tensor cores
 
@@ -577,7 +604,172 @@ def phase_slam(dev, scene, ts, frames, orb_params, gate_ate):
         log("slam: ATE gate skipped (not the default configuration the bound was measured on)")
     elif not ate.rmse_scaled <= SLAM_ATE_M + TOL_SLAM_ATE_M:
         fail(f"slam: scale-aligned ATE {ate.rmse_scaled:.6f} m > {SLAM_ATE_M} + {TOL_SLAM_ATE_M} m")
+    all_ms = np.asarray([r["ms"] for r in rec])
+    return launches, dict(ate=float(ate.rmse_scaled), median_ms=float(np.median(all_ms)),
+                          p99_ms=float(np.percentile(all_ms, 99)), fps=n / (all_ms.sum() / 1e3))
+
+
+def make_system(dev, scene, orb_params, async_mapping=True):
+    """The port's System over a Settings object made in code (no YAML)."""
+    from orbslam3_cpp_fork_tpu_torch import convert
+    from orbslam3_cpp_fork_tpu_torch.runtime.system import System
+    from orbslam3_cpp_fork_tpu_torch.utils.settings import Settings
+
+    K = scene.K
+    settings = Settings(
+        camera_type="PinHole", camera=convert.camera_from_numpy(K[0, 0], K[1, 1], K[0, 2], K[1, 2]),
+        width=scene.width, height=scene.height, fps=30.0, rgb=False, n_features=orb_params.n_features,
+        scale_factor=orb_params.scale_factor, n_levels=orb_params.n_levels,
+        ini_th_fast=int(orb_params.th_fast_high), min_th_fast=int(orb_params.th_fast_low),
+    )
+    return System(settings, async_mapping=async_mapping, enable_loop_closing=False, device=dev)
+
+
+def run_async(dev, scene, frames, orb_params, time_recently_lost=None):
+    """One cold-start run in the default mode (mapping worker + pipelined
+    tracking) through System, free-running, then shutdown. A failure on the
+    mapping thread is re-raised by wait_idle or by shutdown and ends the
+    script. Returns the system, per-frame records, what the spies saw and
+    the describe-launch counts."""
+    import threading
+
+    import torch
+
+    from orbslam3_cpp_fork_tpu_torch.ops import patches
+
+    system = make_system(dev, scene, orb_params)
+    trk = system.tracker
+    if trk.pipeline_lag != 2 or trk.worker is None:
+        fail(f"async: the default mode resolved pipeline_lag={trk.pipeline_lag}, worker={trk.worker}")
+    if time_recently_lost is not None:
+        trk.cfg.time_recently_lost = time_recently_lost
+    seen = dict(stale=[], step_threads=[])
+    finish, step = trk._finish_tracked_frame, trk._mapping_step
+
+    def finish_spy(frame, n_in):
+        ids = frame.lm_idx[frame.lm_idx >= 0]
+        if len(ids) and not trk.map.lm_valid[ids].all():
+            seen["stale"].append((frame.frame_id, int((~trk.map.lm_valid[ids]).sum())))
+        return finish(frame, n_in)
+
+    def step_spy(k, map_ref):
+        seen["step_threads"].append(threading.current_thread().name)
+        return step(k, map_ref)
+
+    trk._finish_tracked_frame, trk._mapping_step = finish_spy, step_spy
+    counter = patches.describe_counter(dev)
+    torch.cuda.synchronize()
+    counter.zero_()
+    patches.describe_launches = 0
+    rec = []
+    t_start = time.perf_counter()
+    for i, f in enumerate(frames):
+        busy0 = trk.worker.busy()
+        t1 = time.perf_counter()
+        T = system.track_monocular(f, i * 0.05)
+        ms = (time.perf_counter() - t1) * 1e3
+        rec.append(dict(ms=ms, ok=T is not None, state=trk.state.name, mapping=busy0 or trk.worker.busy()))
+    t_track = time.perf_counter() - t_start
+    worker = trk.worker
+    system.shutdown()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_start
+    return system, rec, seen, worker, dict(t_track=t_track, wall=wall), int(counter), patches.describe_launches
+
+
+def phase_async(dev, scene, ts, frames, orb_params, slam, gate_ate):
+    import numpy as np
+
+    from orbslam3_cpp_fork_tpu_torch.runtime.tracker import TrackState
+    from orbslam3_cpp_fork_tpu_torch.utils.evaluation import ate_rmse
+
+    n = len(frames)
+    system, rec, seen, worker, times, launches, host_launches = run_async(dev, scene, frames, orb_params)
+    trk = system.tracker
+    m = trk.map
+    first_ok = next((i for i, r in enumerate(rec) if r["state"] == "OK"), None)
+    log(f"async: map initialized at frame {first_ok}; state {trk.state.name}; pipelined frames "
+        f"{trk.n_pipelined_frames}, synchronous {trk.n_sync_frames}, declined by the fused path {trk.n_fused_declined}; "
+        f"loss events {trk.n_lost_events}, in-flight frames dropped {trk.n_frames_dropped}; keyframes "
+        f"{m.n_keyframes()} ({trk.n_kf_inserted} inserted, {trk.n_kf_skipped_backpressure} skipped by back-pressure); "
+        f"landmarks {m.n_landmarks()}")
+    n_worker = sum(t == "mapping" for t in seen["step_threads"])
+    log(f"async: mapping steps {len(seen['step_threads'])}, {n_worker} of them on the worker thread; keyframes "
+        f"processed by the worker {worker.n_processed}; catch-up batches {worker.n_batches}; worker busy "
+        f"{worker.busy_s:.2f} s of {times['wall']:.2f} s (idle share {1 - worker.busy_s / times['wall']:.1%})")
+    ms = np.asarray([r["ms"] for r in rec])
+    during = np.asarray([r["ms"] for r in rec[first_ok or 0:] if r["mapping"]])
+    other = np.asarray([r["ms"] for r in rec[first_ok or 0:] if not r["mapping"]])
+    log(f"async: per-frame track() latency median {np.median(ms):.3f} ms, p99 {np.percentile(ms, 99):.3f} ms "
+        f"(synchronous run of this process: median {slam['median_ms']:.3f} ms, p99 {slam['p99_ms']:.3f} ms, all "
+        f"frames, keyframe frames included)")
+    for name, a in (("while a mapping step was running", during), ("with the worker idle", other)):
+        if len(a):
+            log(f"async: frames {name} ({len(a)}): median {np.median(a):.3f} ms, p99 {np.percentile(a, 99):.3f} ms")
+    waits = [float(c.split(":")[1].rstrip("ms+")) for cs in trk.frame_causes.values() for c in cs
+             if c.startswith("map_wait:")]
+    log(f"async: frames per second {n / times['t_track']:.3f} over the track() calls, {n / times['wall']:.3f} end to "
+        f"end with the final flush (synchronous run: {slam['fps']:.3f}); map_wait on {len(waits)} frames, "
+        f"{sum(waits) / n:.2f} ms per frame over all frames, longest {max(waits, default=0.0):.0f} ms; "
+        f"young-map drains {sum('young_map_drain' in cs for cs in trk.frame_causes.values())}")
+    log(f"async: orb_describe launches counted on the card {launches}, by the wrapper {host_launches} (= {n} frames)")
+
+    if first_ok is None or first_ok >= min(SLAM_INIT_BY, n):
+        fail(f"async: the map did not initialize within the first {min(SLAM_INIT_BY, n)} frames")
+    if trk.state != TrackState.OK or trk.n_lost_events:
+        fail(f"async: final state {trk.state.name}, {trk.n_lost_events} loss events")
+    if worker.n_processed < 1 or n_worker < 1 or n_worker != len(seen["step_threads"]):
+        fail(f"async: the worker processed {worker.n_processed} keyframes; mapping steps ran on {seen['step_threads']}")
+    if seen["stale"]:
+        fail(f"async: tracked frames bound to dead landmarks: {seen['stale'][:10]}")
+    if launches != n or host_launches != n:
+        fail(f"async: orb_describe ran {launches} times on the card ({host_launches} by the wrapper) for {n} frames")
+    kv, lv = m.kf_valid, m.lm_valid
+    if not (np.isfinite(m.kf_R[kv]).all() and np.isfinite(m.kf_t[kv]).all() and np.isfinite(m.lm_pos[lv]).all()):
+        fail("async: non-finite map poses or points")
+    ts_est, Twc = trk.export_trajectory()
+    coverage = len(ts_est) / n
+    if not np.isfinite(Twc).all() or not np.all(np.diff(ts_est) > 0):
+        fail("async: exported trajectory is not finite or its timestamps do not strictly increase")
+    ate = ate_rmse(ts_est, Twc[:, :3, 3], np.arange(n) * 0.05, ts)
+    bound = ASYNC_ATE_FACTOR * slam["ate"] + ASYNC_ATE_SLACK_M
+    log(f"async: coverage {coverage:.3f} ({len(ts_est)} poses exported for {n} frames); scale-aligned ATE RMSE "
+        f"{ate.rmse_scaled:.6f} m over {ate.n_pairs} frames; bound {ASYNC_ATE_FACTOR} x {slam['ate']:.6f} "
+        f"(synchronous run of this process) + {ASYNC_ATE_SLACK_M} = {bound:.6f} m")
+    if not gate_ate:
+        log("async: pipelined-frame, coverage and ATE gates skipped (shortened run)")
+        return launches
+    if trk.n_pipelined_frames <= ASYNC_MIN_PIPELINED:
+        fail(f"async: {trk.n_pipelined_frames} pipelined frames (> {ASYNC_MIN_PIPELINED} required)")
+    if coverage <= ASYNC_MIN_COVERAGE:
+        fail(f"async: coverage {coverage:.3f} (> {ASYNC_MIN_COVERAGE} required)")
+    if not ate.rmse_scaled <= bound:
+        fail(f"async: scale-aligned ATE {ate.rmse_scaled:.6f} m > {bound:.6f} m")
     return launches
+
+
+def phase_ladder(dev, scene, frames, orb_params):
+    """Four black frames in a 90-frame prefix: the pipeline drops what is in
+    flight and the loss ladder runs (RECENTLY_LOST with re-acquisition, LOST
+    after time_recently_lost = 0.6 s); nothing may raise."""
+    import numpy as np
+
+    seq = list(frames[:LADDER_FRAMES])
+    for i in range(*LADDER_BLACK):
+        seq[i] = np.zeros_like(seq[i])
+    system, rec, seen, worker, times, launches, _ = run_async(dev, scene, seq, orb_params, time_recently_lost=0.6)
+    trk = system.tracker
+    states = [r["state"] for r in rec]
+    changes = [(i, s) for i, s in enumerate(states) if i == 0 or s != states[i - 1]]
+    log(f"ladder: state changes {changes}; loss events {trk.n_lost_events}; in-flight frames dropped "
+        f"{trk.n_frames_dropped}; frames on which the reference would relocalize {trk.n_lost_frames}; final state "
+        f"{trk.state.name}; re-acquired: {trk.state.name == 'OK'}; describe launches {launches} for {len(seq)} frames")
+    if trk.n_lost_events < 1:
+        fail("ladder: four black frames did not produce a loss event")
+    if trk.state.name not in ("OK", "RECENTLY_LOST", "LOST"):
+        fail(f"ladder: final state {trk.state.name}")
+    if seen["stale"]:
+        fail(f"ladder: tracked frames bound to dead landmarks: {seen['stale'][:10]}")
 
 
 def phase_profile_slam(dev, scene, frames, orb_params):
@@ -732,7 +924,7 @@ def phase_compare_routes(dev, make, frames, block=10):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--frames", type=int, default=FRAMES,
-                    help="frames to track in both tracked phases; any other count than the default skips the ATE gates")
+                    help="frames to track in the tracked phases; any other count than the default skips the ATE gates")
     ap.add_argument("--profile", type=int, default=0, metavar="N",
                     help="also profile N tracked frames with torch.profiler (default: off)")
     ap.add_argument("--compare-routes", action="store_true",
@@ -777,7 +969,10 @@ def main(argv=None) -> int:
         dev, make, ts, frames, min(CPU_CHECK, args.frames), gate_ate=args.frames == FRAMES
     )
     gather_launches = phase_per_level_path(dev, frames[: min(PER_LEVEL_FRAMES, args.frames)], orb_params)
-    slam_launches = phase_slam(dev, scene, ts, frames, orb_params, gate_ate=args.frames == FRAMES)
+    slam_launches, slam = phase_slam(dev, scene, ts, frames, orb_params, gate_ate=args.frames == FRAMES)
+    async_launches = phase_async(dev, scene, ts, frames, orb_params, slam, gate_ate=args.frames == FRAMES)
+    if args.frames >= LADDER_FRAMES:
+        phase_ladder(dev, scene, frames, orb_params)
     if args.compare_routes:
         phase_compare_routes(dev, make, frames)
     if args.profile:
@@ -790,10 +985,12 @@ def main(argv=None) -> int:
         {
             "name": "orb_describe", "route": "cuda",
             "source": "orbslam3_cpp_fork_tpu_torch/csrc/orb_describe.cu", "replaces": tpu_kernel,
-            # One launch a frame on both main paths: localization-only
-            # tracking and the cold-start SLAM run, each counted from 0.
-            "launches": describe_launches + slam_launches,
+            # One launch a frame on every main path: localization-only
+            # tracking, the synchronous cold-start SLAM run and the
+            # asynchronous one, each counted from 0.
+            "launches": describe_launches + slam_launches + async_launches,
             "launches_localization": describe_launches, "launches_slam": slam_launches,
+            "launches_async": async_launches,
             "max_abs_err": describe["max_abs_err"],
             "ms": describe["ms"], "plain_ms": describe["plain_ms"],
             "bound_ms": describe["bound_ms"], "bound_by": describe["bound_by"],

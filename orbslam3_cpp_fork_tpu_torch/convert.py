@@ -1,5 +1,6 @@
 """The state carried across from the reference runtime: camera, local-map
-snapshot, the whole map, a window-BA problem, the tracker configuration.
+snapshot, the whole map, a window-BA problem, the tracker configuration and
+the tracker's live state (last frame, motion model, reference keyframe).
 
 The system has no weights. Its tracking state is the camera and the
 local-map snapshot the reference uploads in Tracker._refresh_dev_local:
@@ -22,7 +23,7 @@ from .ops.camera import Camera
 from .ops.orb import OrbParams
 from .optim.local_ba import BAProblem
 from .runtime.localization import LocalMap
-from .runtime.tracker import DeviceKFStore, Sensor, TrackerConfig
+from .runtime.tracker import DeviceKFStore, FrameData, Sensor, Tracker, TrackerConfig, TrackState
 
 SNAPSHOT_KEYS = ("pos", "normal", "mind", "maxd", "desc", "valid")
 
@@ -147,3 +148,74 @@ def tracker_config_from_reference(d: dict) -> TrackerConfig:
     if sensor is not None and not isinstance(sensor, Sensor):
         kw["sensor"] = Sensor[getattr(sensor, "name", sensor)]
     return TrackerConfig(**kw)
+
+
+FRAME_ARRAYS = ("xy", "level", "angle", "desc", "valid", "lm_idx", "ur", "depth")
+
+
+def frame_to_numpy(frame) -> dict | None:
+    """A tracker's frame record (the reference's FrameData or the port's)
+    as host arrays: pose, features and landmark bindings."""
+    if frame is None:
+        return None
+    d = {k: np.array(getattr(frame, k)) for k in FRAME_ARRAYS}
+    d.update(
+        frame_id=int(frame.frame_id), timestamp=float(frame.timestamp),
+        R=None if frame.R is None else np.array(frame.R, np.float32),
+        t=None if frame.t is None else np.array(frame.t, np.float32),
+    )
+    return d
+
+
+def frame_from_numpy(d: dict | None) -> FrameData | None:
+    if d is None:
+        return None
+    kw = {k: np.array(d[k]) for k in FRAME_ARRAYS}
+    kw["desc"] = kw["desc"].astype(np.uint32)
+    return FrameData(
+        frame_id=d["frame_id"], timestamp=d["timestamp"],
+        R=None if d["R"] is None else np.array(d["R"], np.float32),
+        t=None if d["t"] is None else np.array(d["t"], np.float32), **kw,
+    )
+
+
+def tracker_state_to_numpy(trk) -> dict:
+    """The live tracking state of a tracker (the reference's or the port's:
+    the attribute names are the same) as plain numbers and numpy arrays: the
+    state machine, the `last` frame with its bindings, the motion model, the
+    reference keyframe, and the local-map snapshot's landmark ids and
+    anchor. With `map_state_to_numpy(trk.map)` it is everything one frame of
+    tracking reads, so a reference tracker and a port tracker can be put in
+    the same state and stepped side by side."""
+    snap = trk._dev_local
+    anchor = None if snap is None else snap.get("anchor")
+    return dict(
+        state=trk.state.name, frame_id=int(trk.frame_id), ref_kf=int(trk.ref_kf),
+        last_kf_frame_id=int(trk.last_kf_frame_id), n_kf_inserted=int(trk.n_kf_inserted),
+        last_n_in=int(trk._last_n_in), lost_t=float(trk.lost_t),
+        velocity=None if trk.velocity is None else tuple(np.array(v, np.float32) for v in trk.velocity),
+        last=frame_to_numpy(trk.last),
+        snapshot_ids=None if snap is None else np.array(snap["ids"]),
+        snapshot_anchor=None if anchor is None else (int(anchor[0]), np.array(anchor[1]), np.array(anchor[2])),
+    )
+
+
+def load_tracker_state(trk: Tracker, state: dict, map_arrays: dict | None = None) -> None:
+    """Put a port tracker into a state made by `tracker_state_to_numpy`
+    (and, with `map_arrays`, onto the map made by `map_state_to_numpy`).
+    The device snapshot is not carried over: the tracker rebuilds it from
+    the map at its next frame, as it does after any map change."""
+    if map_arrays is not None:
+        trk.map = map_state_from_numpy(map_arrays)
+    trk.state = TrackState[state["state"]]
+    trk.frame_id = state["frame_id"]
+    trk.ref_kf = state["ref_kf"]
+    trk.last_kf_frame_id = state["last_kf_frame_id"]
+    trk.n_kf_inserted = state["n_kf_inserted"]
+    trk._last_n_in = state["last_n_in"]
+    trk.lost_t = state["lost_t"]
+    trk.velocity = None if state["velocity"] is None else tuple(np.array(v, np.float32) for v in state["velocity"])
+    trk.last = frame_from_numpy(state["last"])
+    trk._dev_local = None
+    trk._chain = None
+    trk._pipe.clear()

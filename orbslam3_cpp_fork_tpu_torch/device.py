@@ -43,6 +43,23 @@ def get_device(name: str | torch.device = "cuda") -> torch.device:
 n_fetches = 0
 
 
+def _pack(tensors) -> torch.Tensor:
+    """A group of device tensors as one flat byte tensor on the device."""
+    return torch.cat([t.contiguous().reshape(-1).view(torch.uint8) for t in tensors])
+
+
+def _split(flat: np.ndarray, tensors) -> list[np.ndarray]:
+    """The packed bytes back as one array per tensor, each a copy with the
+    tensor's shape and dtype (bool, integer or float)."""
+    out, at = [], 0
+    for t in tensors:
+        n = t.numel() * t.element_size()
+        dtype = np.bool_ if t.dtype == torch.bool else torch.empty(0, dtype=t.dtype).numpy().dtype
+        out.append(flat[at : at + n].view(dtype).reshape(tuple(t.shape)).copy())
+        at += n
+    return out
+
+
 def fetch_block(tensors) -> list[np.ndarray]:
     """Copy a group of tensors to the host as numpy arrays in ONE transfer.
 
@@ -58,11 +75,49 @@ def fetch_block(tensors) -> list[np.ndarray]:
     if tensors[0].device.type == "cpu":
         return [t.clone().numpy() for t in tensors]
     n_fetches += 1
-    flat = torch.cat([t.contiguous().reshape(-1).view(torch.uint8) for t in tensors]).cpu().numpy()
-    out, at = [], 0
-    for t in tensors:
-        n = t.numel() * t.element_size()
-        dtype = np.bool_ if t.dtype == torch.bool else torch.empty(0, dtype=t.dtype).numpy().dtype
-        out.append(flat[at : at + n].view(dtype).reshape(tuple(t.shape)).copy())
-        at += n
-    return out
+    return _split(_pack(tensors).cpu().numpy(), tensors)
+
+
+class AsyncFetch:
+    """A result block on its way to the host (see `fetch_block_async`).
+    `get()` waits for this block's copy only and returns the arrays."""
+
+    def __init__(self, tensors, host: torch.Tensor | None, event):
+        self._tensors = tensors  # shapes and dtypes; CPU tensors are the data
+        self._host = host
+        self._event = event
+
+    def get(self) -> list[np.ndarray]:
+        if self._host is None:
+            return [t.numpy() for t in self._tensors]
+        self._event.synchronize()
+        return _split(self._host.numpy(), self._tensors)
+
+
+def block_nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def fetch_block_async(tensors, pinned: torch.Tensor | None = None) -> AsyncFetch:
+    """The asynchronous form of `fetch_block`: pack the block on the device,
+    start ONE copy into a pinned host buffer on the current stream, record
+    an event behind it and return at once. `AsyncFetch.get()` waits on that
+    event alone, so fetching a block that has landed costs no device-wide
+    sync. `pinned` is a pinned uint8 buffer of at least the block's size
+    that the caller keeps alive and does not hand out again before `get()`
+    (one per slot of a pipeline); without it a buffer is allocated here.
+    CPU tensors are copied and returned at once.
+    """
+    tensors = [t.detach() for t in tensors]
+    if not tensors or tensors[0].device.type == "cpu":
+        return AsyncFetch([t.clone() for t in tensors], None, None)
+    n = block_nbytes(tensors)
+    if pinned is None:
+        pinned = torch.empty(n, dtype=torch.uint8, pin_memory=True)
+    elif not pinned.is_pinned() or pinned.dtype != torch.uint8 or pinned.numel() < n:
+        raise ValueError(f"pinned buffer must be pinned uint8 of >= {n} bytes")
+    host = pinned[:n]
+    host.copy_(_pack(tensors), non_blocking=True)
+    event = torch.cuda.Event()
+    event.record()
+    return AsyncFetch(tensors, host, event)

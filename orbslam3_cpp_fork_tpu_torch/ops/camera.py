@@ -38,6 +38,15 @@ class Camera:
             d[i] = _f32(v)
         return Camera(_f32(fx), _f32(fy), _f32(cx), _f32(cy), tuple(d), PINHOLE)
 
+    def scaled(self, sx: float, sy: float) -> "Camera":
+        """Intrinsics after resizing the image by (sx, sy). The products are
+        rounded to float32, as the reference's f32 scalars are."""
+        sx, sy = np.float32(sx), np.float32(sy)
+        return Camera(
+            _f32(np.float32(self.fx) * sx), _f32(np.float32(self.fy) * sy),
+            _f32(np.float32(self.cx) * sx), _f32(np.float32(self.cy) * sy), self.dist, self.kind,
+        )
+
 
 def _check_kind(cam: Camera) -> None:
     if cam.kind != PINHOLE:

@@ -1,5 +1,4 @@
-"""Monocular tracking + local mapping, synchronous mode (port of
-runtime/tracker.py).
+"""Monocular tracking + local mapping (port of runtime/tracker.py).
 
 Host-orchestrated state machine (Tracking.cc + LocalMapping.cc) whose heavy
 stages are fixed-shape device programs:
@@ -8,18 +7,31 @@ frame -> extract_orb -> [two-view init | fused three-stage track] ->
 keyframe policy -> (insert KF -> triangulate new landmarks -> fuse
 duplicates -> cull -> window BA -> cull keyframes)
 
-Ported: the monocular, frame-synchronous path (`async_mapping=False`,
-no pipelining, no loop closing). Every other configuration raises
-`NotImplementedError` at construction, naming the ROADMAP item. The
-keyframe database (relocalization, loop detection: A10) and the Atlas
-(A12) are left out: `Tracker.map` is one `MapState`.
+Ported: the monocular runtime without loop closing, in both of the
+reference's modes. `async_mapping=True` (the default) runs the mapping step
+on a background thread (`runtime/mapping_worker.py`) and resolves
+`pipeline_lag=2`: on an established, comfortably tracked map each frame is
+one chained dispatch of `fused_frame_program` whose result block is copied
+to the host asynchronously and retired `pipeline_lag` frames later.
+`async_mapping=False` with `pipeline_lag=0` is the frame-synchronous,
+bit-reproducible control. A frame the fused path declines is retried by the
+split-phase path (`_track_frame_slow`), and a failure there enters the
+OK -> RECENTLY_LOST -> LOST ladder. Stereo/RGB-D, inertial input and loop
+closing raise `NotImplementedError` at construction, naming the ROADMAP
+item. The keyframe database (relocalization, loop detection: A10) and the
+Atlas (A12) are left out: `Tracker.map` is one `MapState`, and a LOST
+tracker stays LOST and counts its frames.
 
 The host side is numpy, as in the reference; device work runs on
 `Tracker.device` in f32 (window BA included), each stage fetches its
 result block in one transfer (`device.fetch_block`), and every shape is
-padded to the configured caps so the programs stay capturable. The map
-lock is kept where the reference takes it: nothing contends for it in this
-mode, and it marks the sections the mapping worker must not interleave.
+padded to the configured caps so the programs stay capturable. Both threads
+launch their device work on the current (default) stream: the card is idle
+most of the time, one stream orders every tensor that crosses the threads
+(keyframe-store rows, the local-map snapshot, a frame's features) without
+events, and the price is that a fetch of the mapping thread also waits for
+the tracking work queued before it. The map lock guards the numpy gathers
+and write-backs only; no device fetch happens under it.
 
 Trajectory bookkeeping stores (ref_kf, T_frame<-refkf) like
 Tracking::mlRelativeFramePoses, so BA corrections reach the exported
@@ -28,16 +40,18 @@ trajectory.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import enum
 import functools
 import logging
 import threading
+import time
 
 import numpy as np
 import torch
 
-from ..device import fetch_block, get_device
+from ..device import block_nbytes, fetch_block, fetch_block_async, get_device
 from ..models.map_state import LEVEL_SIGMA2, MapConfig, MapState
 from ..ops import geometry, matching, orb, ransac
 from ..ops.camera import Camera, true_div, undistort_points
@@ -114,9 +128,9 @@ class Sensor(enum.Enum):
 @dataclasses.dataclass
 class TrackerConfig:
     """The reference's tracker configuration, with the fields the ported
-    slice reads (same names, same defaults). `sensor`, `imu`,
-    `async_mapping`, `pipeline_lag` and `enable_loop_closing` are kept so
-    that a configuration outside the slice is refused by name."""
+    slice reads (same names, same defaults). `sensor`, `imu` and
+    `enable_loop_closing` are kept so that a configuration outside the
+    slice is refused by name."""
 
     camera: Camera = None
     width: int = 752
@@ -126,14 +140,41 @@ class TrackerConfig:
     orb: orb.OrbParams = dataclasses.field(default_factory=orb.OrbParams)
     bf: float = 0.0
     enable_loop_closing: bool = True
+    # Run the mapping step on a background thread so per-frame track latency
+    # stays flat across keyframe insertions. Tracking reads a bounded-stale
+    # map. Set False for bit-deterministic runs.
     async_mapping: bool = True
+    # Software-pipelined tracking: per-frame device programs chain on the
+    # device (pose prediction and the bound-landmark carry are device
+    # tensors of the previous program) and the host retires results
+    # `pipeline_lag` frames late from asynchronous host copies. None
+    # resolves to 2 when async_mapping else 0.
     pipeline_lag: int | None = None
+    # The tracker pipelines while inliers stay above pipeline_enter_inliers
+    # on a map of at least pipeline_min_kfs keyframes, shortens the lag to 1
+    # below pipeline_exit_inliers, and tracks young maps synchronously.
+    pipeline_enter_inliers: int = 60
+    pipeline_exit_inliers: int = 45
+    pipeline_min_kfs: int = 8
+    # While the map has fewer keyframes than this, the track thread drains
+    # the mapping worker after every insertion: a young mono map cannot
+    # absorb a trailing frontier.
+    young_map_kfs: int = 12
+    # Bounded-staleness budget: before tracking each frame, wait up to this
+    # many ms for the mapping worker's in-flight step to reach its frontier.
+    # 0 disables (race freely).
+    map_wait_budget_ms: float = 250.0
     # Re-center the device local-map snapshot at least this often (frames).
     snapshot_max_age_frames: int = 3
     # Matching / tracking thresholds (reference values).
     init_min_matches: int = 100
     min_track_matches: int = 20
+    min_track_inliers: int = 10
     min_localmap_inliers: int = 30
+    # Acceptance floor while the mapping worker is behind on an established
+    # map; equal to the strict floor by default (a transient RECENTLY_LOST
+    # recovers cleanly, a map corrupted by weak frames does not).
+    min_localmap_inliers_degraded: int = 30
     kf_max_interval: int = 30
     kf_min_interval: int = 4
     # Temporally newest keyframes placed ahead of the covisibles in the
@@ -141,6 +182,8 @@ class TrackerConfig:
     tri_recent_first: int = 8
     # Covisible neighbours triangulated against per new keyframe.
     triangulate_neighbors: int = 6
+    # Seconds of RECENTLY_LOST grace before declaring LOST.
+    time_recently_lost: float = 5.0
     kf_ref_ratio: float = 0.9
     # Maximum frame gap a relative trajectory record may span before it is
     # re-anchored onto the next inserted keyframe.
@@ -201,6 +244,28 @@ def match_initialization(desc1_i8, xy1, valid1, angle1, desc2_i8, xy2, valid2, a
     dist = matching.hamming_matrix(desc1_i8, desc2_i8)
     pen = matching.window_penalty(xy1, xy2, torch.full((xy1.shape[0],), 100.0, device=xy1.device))
     idx, ok = matching.match_nn(dist, valid1, valid2, max_dist=50, ratio=0.9, cross_check=True, extra_penalty=pen)
+    ok = matching.rotation_consistency(angle1, angle2, idx, ok)
+    return idx, ok
+
+
+def match_by_projection_leveled(
+    lm_bits, lm_valid, uv_pred, pred_level, radius_base, f_bits, f_xy, f_level, f_valid,
+):
+    """Projection search with the per-landmark radius scaled by the
+    predicted level (SearchByProjection map->frame)."""
+    radius = radius_base * _scale_pow(pred_level)
+    return matching.search_by_projection(
+        lm_bits, lm_valid, uv_pred, pred_level, f_bits, f_xy, f_level, f_valid, radius,
+        max_dist=matching.TH_HIGH, ratio=0.9, level_band=1,
+    )
+
+
+def match_bow_like(desc1_i8, valid1, angle1, desc2_i8, valid2, angle2):
+    """Unwindowed ratio-0.7 matching with rotation check: stands in for
+    SearchByBoW (the BoW node alignment is only an acceleration; the dense
+    distance matrix needs none)."""
+    dist = matching.hamming_matrix(desc1_i8, desc2_i8)
+    idx, ok = matching.match_nn(dist, valid1, valid2, max_dist=matching.TH_LOW, ratio=0.7, cross_check=True)
     ok = matching.rotation_consistency(angle1, angle2, idx, ok)
     return idx, ok
 
@@ -588,8 +653,9 @@ class DeviceKFStore:
 
 
 class Tracker:
-    """Monocular SLAM front end + local mapping, frame-synchronous
-    (System::TrackMonocular + Tracking::Track + LocalMapping::Run)."""
+    """Monocular SLAM front end + local mapping (System::TrackMonocular +
+    Tracking::Track + LocalMapping::Run), with the mapping step on the
+    caller's thread or on a `MappingWorker`."""
 
     def __init__(self, cfg: TrackerConfig, device: str | torch.device = "cuda"):
         assert cfg.camera is not None
@@ -598,14 +664,6 @@ class Tracker:
             raise NotImplementedError(f"sensor {cfg.sensor.name} is not ported yet (ROADMAP {item})")
         if cfg.imu is not None:
             raise NotImplementedError("inertial tracking is not ported yet (ROADMAP A13)")
-        if cfg.async_mapping:
-            raise NotImplementedError(
-                "async_mapping=True (the mapping worker) is not ported yet (ROADMAP A9); pass async_mapping=False"
-            )
-        if cfg.pipeline_lag not in (0, None):
-            raise NotImplementedError(
-                f"pipeline_lag={cfg.pipeline_lag} (pipelined tracking) is not ported yet (ROADMAP A9)"
-            )
         if cfg.enable_loop_closing:
             raise NotImplementedError(
                 "enable_loop_closing=True is not ported yet (ROADMAP A10); pass enable_loop_closing=False"
@@ -637,17 +695,43 @@ class Tracker:
         self._traj_anchor_ptr = 0
         self.n_kf_inserted = 0
         self._dev_local: dict | None = None  # device local-map snapshot
-        self._last_n_in = 0
+        self._snap_seq = 0  # bumped on every _dev_local swap
+        self._last_n_in = 0  # latest tracked-inlier count (any path)
         self.n_sync_frames = 0
-        # Frames the fused path declined (the split-phase retry and
-        # relocalization are not ported: such a frame is a loss).
+        self.n_pipelined_frames = 0
+        # Frames the fused path declined and handed to the split-phase path.
         self.n_fused_declined = 0
+        # Frames on which the reference would relocalize (RECENTLY_LOST
+        # without re-acquisition, LOST): relocalization is not ported.
         self.n_lost_frames = 0
+        self.n_lost_events = 0  # OK -> RECENTLY_LOST/LOST transitions
+        self.n_frames_dropped = 0  # in-flight frames discarded on failure
+        self.n_kf_skipped_backpressure = 0
+        self.lost_t = 0.0  # timestamp at which RECENTLY_LOST began
+        # Per-frame cause tags for latency attribution (frame_id -> [tags]):
+        # every event that can stall a frame records why.
+        self.frame_causes: dict[int, list[str]] = collections.defaultdict(list)
         self.n_fused_last = 0  # duplicates merged by the last mapping step
+        # Software-pipelined tracking state. `_pipe` holds in-flight
+        # dispatched frames; `_chain` the newest program's device outputs.
+        self.pipeline_lag = cfg.pipeline_lag if cfg.pipeline_lag is not None else (2 if cfg.async_mapping else 0)
+        self._pipe: collections.deque = collections.deque()
+        self._chain: dict | None = None
+        self._last_retired_T: np.ndarray | None = None
+        self._identity_remap: torch.Tensor | None = None  # cached (cap,) arange
+        # Pinned host buffers of the asynchronous result fetch, one per
+        # pipeline slot (allocated at the first pipelined frame on a card).
+        self._pipe_bufs: list[torch.Tensor] = []
         self._kf_store = DeviceKFStore(cfg.map_cfg.max_keyframes, cfg.orb.n_features, self.device)
         # Per-KF scene median depth cache (triangulation baseline gate).
         self._kf_med_depth = np.zeros(cfg.map_cfg.max_keyframes, np.float32)
         self._kf_med_depth_ver = (-1, -1)
+        # Last, once everything its thread may touch exists.
+        self.worker = None
+        if cfg.async_mapping:
+            from .mapping_worker import MappingWorker
+
+            self.worker = MappingWorker(self)
 
     # ------------------------------------------------------------------
 
@@ -684,16 +768,20 @@ class Tracker:
             depth=np.full(n, -1.0, np.float32),
         )
 
+    def _upload_image(self, frame: FrameData) -> torch.Tensor:
+        """The frame's raw uint8 image on the tracker's device."""
+        host = torch.from_numpy(np.ascontiguousarray(frame.img_u8))
+        if self.device.type == "cuda":
+            host = host.pin_memory().to(self.device, non_blocking=True)
+        return host
+
     def _ensure_feats(self, frame: FrameData):
         """Dispatch extraction + undistortion; results stay on the device
         (host copies materialize lazily in one batched fetch)."""
         if frame._feats_dev is not None or frame.img_u8 is None:
             return
         with self.timers.span("orb_extract"):
-            host = torch.from_numpy(np.ascontiguousarray(frame.img_u8))
-            if self.device.type == "cuda":
-                host = host.pin_memory().to(self.device, non_blocking=True)
-            feats = orb.extract_orb(host.to(torch.float32), self.cfg.orb)
+            feats = orb.extract_orb(self._upload_image(frame).to(torch.float32), self.cfg.orb)
         frame._feats_dev = feats
         frame._xy_dev = undistort_points(self.cam, feats.xy)
         frame.img_u8 = None
@@ -708,21 +796,38 @@ class Tracker:
         return self._process(frame)
 
     def _process(self, frame: FrameData) -> np.ndarray | None:
+        # Bounded-staleness wait (see TrackerConfig.map_wait_budget_ms):
+        # give the in-flight mapping step a bounded chance to land before
+        # this frame tracks.
+        if self.worker is not None and self.cfg.map_wait_budget_ms > 0 and self.worker.busy():
+            t_w = time.perf_counter()
+            done = self.worker.wait_idle(self.cfg.map_wait_budget_ms / 1e3)
+            waited = (time.perf_counter() - t_w) * 1e3
+            if waited > 2.0:
+                self.frame_causes[frame.frame_id].append(f"map_wait:{waited:.0f}ms" + ("" if done else "+"))
+        if self.state == TrackState.OK and self._pipeline_active():
+            T = self._track_frame_pipelined(frame)
+            self.frame_id += 1
+            return T
         self._ensure_feats(frame)
         if self.state in (TrackState.NO_IMAGES_YET, TrackState.NOT_INITIALIZED):
             self._initialize(frame)
-        elif self.state == TrackState.OK:
-            self._track_frame(frame)
-        else:
-            # Relocalization is not ported: a lost tracker stays lost.
+        elif self.state == TrackState.RECENTLY_LOST:
+            self._recently_lost_step(frame)
+        elif self.state == TrackState.LOST:
+            # The reference relocalizes here (and spawns a new map when that
+            # keeps failing); neither is ported (ROADMAP A10, A12): a LOST
+            # tracker stays LOST and counts the frame.
             self.n_lost_frames += 1
+            frame.R = None
+            frame.t = None
+            self.last = frame
+        else:
+            self._track_frame(frame)
         self.frame_id += 1
         if frame.R is not None:
             self._record_trajectory(frame)
-            T = np.eye(4, dtype=np.float32)
-            T[:3, :3] = frame.R
-            T[:3, 3] = frame.t
-            return T
+            return self._pose_T(frame)
         return None
 
     # ------------------------------------------------------------------
@@ -842,23 +947,16 @@ class Tracker:
 
     def _track_frame(self, frame: FrameData):
         """Per-frame OK-state tracking: the fused single-program device
-        path (one result fetch per frame). The reference hands a frame that
-        path declines to its split-phase ladder; that ladder is not ported,
-        so such a frame is a loss and is counted."""
+        path (one result fetch per frame); a frame that path cannot
+        confidently track runs the split-phase path."""
         self._check_replaced_in_last_frame()
         self.n_sync_frames += 1
         if self.last is not None and self.last.R is not None:
             with self.timers.span("track_fused"):
                 if self._track_frame_fused(frame):
                     return
-        self.n_fused_declined += 1
-        log.warning("tracking LOST at frame %d (fused path declined)", frame.frame_id)
-        frame.lm_idx[:] = -1
-        frame.R = None
-        frame.t = None
-        self.state = TrackState.LOST
-        self.velocity = None
-        self.last = frame
+            self.n_fused_declined += 1
+        self._track_frame_slow(frame)
 
     def _local_map_version(self) -> tuple:
         """Cache key for the device local-map snapshot: anything that
@@ -867,8 +965,10 @@ class Tracker:
         was built from, and a rotating camera walks out of its own snapshot
         before the next mapping event unless the window re-centers."""
         m = self.map
+        w = self.worker
         return (
             m.map_id, self.n_kf_inserted, m.big_change_idx,
+            (w.n_processed, w.n_frontier) if w is not None else 0,
             self.frame_id // self.cfg.snapshot_max_age_frames,
         )
 
@@ -879,8 +979,17 @@ class Tracker:
         c = self._dev_local
         if c is not None and c["ver"] == ver:
             return True
-        with self.map_lock:
+        # Never stall the track thread behind a long map-lock hold: with an
+        # existing snapshot, bounded staleness is the designed behaviour;
+        # reuse it and refresh on a later frame.
+        if not self.map_lock.acquire(blocking=False):
+            if c is not None:
+                return True
+            self.map_lock.acquire()
+        try:
             return self._refresh_dev_local_locked(self.map, self.cfg.local_lm_cap, ver)
+        finally:
+            self.map_lock.release()
 
     def _refresh_dev_local_locked(self, m, cap, ver) -> bool:
         last_bound = np.unique(self.last.lm_idx[self.last.lm_idx >= 0])
@@ -926,9 +1035,22 @@ class Tracker:
         def padf(x, fill=0):
             return np.concatenate([x, np.full((pad, *x.shape[1:]), fill, x.dtype)])
 
+        self._snap_seq += 1
+        # Anchor for the retirement-time rebase: a snapshot-window keyframe
+        # whose pose IS the snapshot's world frame. When the background
+        # window BA moves the map between a frame's dispatch and its
+        # retirement, composing the anchor's pose delta re-expresses the
+        # pose in the current map. The last inserted keyframe is in every
+        # window-BA window, so it rides every correction.
+        if self.ref_kf >= 0 and m.kf_valid[self.ref_kf]:
+            a = int(self.ref_kf)
+        else:
+            a = int(local_kfs[0]) if len(local_kfs) else -1
+        anchor = (a, m.kf_R[a].copy(), m.kf_t[a].copy()) if a >= 0 else None
         self._dev_local = {
             "ver": ver,
             "ids": lm_ids,
+            "anchor": anchor,
             "pos": self._put(padf(m.lm_pos[lm_ids])),
             "normal": self._put(padf(m.lm_normal[lm_ids])),
             "mind": self._put(padf(m.lm_min_dist[lm_ids])),
@@ -982,6 +1104,9 @@ class Tracker:
         sel = np.nonzero(mok_m & inl)[0]
         sel = sel[sel < n]
         with self.map_lock:
+            # The mapping worker can move the map between this snapshot's
+            # build and this frame: same rebase as the pipelined retirement.
+            frame.R, frame.t = self._rebase_onto_map(frame.R, frame.t, c["anchor"])
             # Forward snapshot-stale (fused-away) ids to survivors; drop
             # only truly dead landmarks.
             ids_r = m.resolve_replaced(lm_ids)
@@ -994,9 +1119,457 @@ class Tracker:
         self._finish_tracked_frame(frame, n_in)
         return True
 
+    def _rebase_onto_map(self, R, t, anchor):
+        """Re-express a pose solved against a snapshot in the CURRENT map:
+        the program solved it against the snapshot's landmark positions,
+        i.e. in the snapshot's world frame. If the window BA moved the map
+        since, compose the snapshot anchor's pose delta
+        (T' = T o T_a0^-1 o T_a1). Caller holds map_lock."""
+        if anchor is None:
+            return R, t
+        m = self.map
+        a, R_a0, t_a0 = anchor
+        if not m.kf_valid[a] or (np.array_equal(m.kf_R[a], R_a0) and np.array_equal(m.kf_t[a], t_a0)):
+            return R, t
+        R_d = R_a0.T @ m.kf_R[a]
+        t_d = R_a0.T @ (m.kf_t[a] - t_a0)
+        return R @ R_d, R @ t_d + t
+
+    # ------------------------------------------------------------------
+    # Software-pipelined tracking (no synchronous device round trip per frame)
+    # ------------------------------------------------------------------
+
     def _min_accept_inliers(self) -> int:
-        """TrackLocalMap acceptance floor (reference: 30)."""
+        """TrackLocalMap acceptance floor (reference: 30), dropped to the
+        degraded floor while the mapping worker is behind on an established
+        map (see TrackerConfig.min_localmap_inliers_degraded)."""
+        if (
+            self.worker is not None
+            and self.worker.busy()
+            and self.map.n_keyframes() >= self.cfg.pipeline_min_kfs
+        ):
+            return self.cfg.min_localmap_inliers_degraded
         return self.cfg.min_localmap_inliers
+
+    def _pipeline_active(self) -> bool:
+        if self.pipeline_lag == 0:
+            return False
+        if self._pipe:
+            return True  # already engaged; retirement decides exits
+        # Engage only from comfortable tracking on an established map: the
+        # lag delays keyframe decisions and map refreshes, which a young or
+        # struggling map cannot absorb.
+        return (
+            self.map.n_keyframes() >= self.cfg.pipeline_min_kfs
+            and self._last_n_in >= self.cfg.pipeline_enter_inliers
+        )
+
+    # Result keys fetched to the host every frame (one small block with the
+    # feature arrays; f_desc_i8 stays on the device).
+    _PIPE_FETCH = (
+        "R", "t", "idx", "bound", "visible", "n_inliers", "n_stage1",
+        "ok", "f_xy", "f_level", "f_angle", "f_desc", "f_valid",
+    )
+
+    def _pose_T(self, frame: FrameData) -> np.ndarray:
+        T = np.eye(4, dtype=np.float32)
+        T[:3, :3] = frame.R
+        T[:3, 3] = frame.t
+        return T
+
+    def _pipe_buffer(self, tensors) -> torch.Tensor | None:
+        """The pinned host buffer of the next pipeline slot. A slot is not
+        handed out again while its frame is in flight: at most
+        `pipeline_lag` frames are in flight when one more is dispatched."""
+        if self.device.type != "cuda":
+            return None
+        if not self._pipe_bufs:
+            n = block_nbytes(tensors)
+            self._pipe_bufs = [
+                torch.empty(n, dtype=torch.uint8, pin_memory=True) for _ in range(self.pipeline_lag + 1)
+            ]
+        return self._pipe_bufs[self.n_pipelined_frames % len(self._pipe_bufs)]
+
+    def _snapshot_remap(self, old_ids: np.ndarray, ids: np.ndarray) -> np.ndarray:
+        """(cap,) new-slot -> old-slot indices (-1 none) that carry the
+        bound mask across a snapshot swap."""
+        order = np.argsort(old_ids, kind="stable")
+        pos = np.searchsorted(old_ids, ids, sorter=order)
+        pos = np.clip(pos, 0, len(old_ids) - 1)
+        old_slot = order[pos].astype(np.int32)
+        hit = old_ids[old_slot] == ids
+        rm = np.full(self.cfg.local_lm_cap, -1, np.int32)
+        rm[: len(ids)] = np.where(hit, old_slot, -1)
+        return rm
+
+    def _track_frame_pipelined(self, frame: FrameData) -> np.ndarray | None:
+        """Dispatch this frame's fused program chained to the previous one;
+        retire the result that is `pipeline_lag` frames old. The per-frame
+        host cost is numpy bookkeeping + dispatch: no device value of this
+        frame is read before its retirement."""
+        from .device_step import fused_frame_program  # lazy: import cycle
+
+        self._check_replaced_in_last_frame()
+        if not self._refresh_dev_local():
+            # Local map too small for the device path: fall back to the
+            # synchronous ladder for this frame.
+            self.frame_causes[frame.frame_id].append("snapshot_thin_sync")
+            self._drain_pipeline()
+            self._ensure_feats(frame)
+            self._track_frame(frame)
+            if frame.R is not None:
+                self._record_trajectory(frame)
+                self._last_retired_T = self._pose_T(frame)
+                return self._last_retired_T
+            return None
+        c = self._dev_local
+        ids = c["ids"]
+        cap = self.cfg.local_lm_cap
+        if self._identity_remap is None:
+            self._identity_remap = torch.arange(cap, dtype=torch.int64, device=self.device)
+
+        if self._chain is None:
+            # (Re)start: host-side prediction from the last retired frame.
+            self._predict_pose(frame)
+            R_pred, t_pred = self._put(frame.R), self._put(frame.t)
+            R_prev, t_prev = self._put(self.last.R), self._put(self.last.t)
+            pb = np.zeros(cap, bool)
+            last_bound = self.last.lm_idx[self.last.lm_idx >= 0]
+            pb[: len(ids)] = np.isin(ids, last_bound)
+            prev_bound = self._put(pb)
+            remap = self._identity_remap
+        else:
+            ch = self._chain
+            R_pred, t_pred = ch["pred"]
+            R_prev, t_prev = ch["R"], ch["t"]
+            prev_bound = ch["bound"]
+            if ch["snap_seq"] != self._snap_seq:
+                # Snapshot swapped since the previous dispatch: carry the
+                # bound mask across via new-slot -> old-slot indices.
+                remap = self._put(self._snapshot_remap(ch["ids"], ids), np.int64)
+            else:
+                remap = self._identity_remap
+
+        out = fused_frame_program(
+            self._upload_image(frame), self.cam,
+            R_pred, t_pred, R_prev, t_prev,
+            c["pos"], c["normal"], c["mind"], c["maxd"], c["desc"], c["valid"],
+            prev_bound, remap,
+            self.cfg.min_track_matches, self._min_accept_inliers(),
+            self.fx, self.fy, self.cx, self.cy,
+            float(self.cfg.width), float(self.cfg.height),
+            orb_params=self.cfg.orb,
+        )
+        block = [out[k] for k in self._PIPE_FETCH]
+        fetch = fetch_block_async(block, self._pipe_buffer(block))
+        self._chain = dict(
+            R=out["R"], t=out["t"], pred=(out["R_pred_next"], out["t_pred_next"]),
+            bound=out["bound"], ids=ids, snap_seq=self._snap_seq,
+        )
+        self._pipe.append((frame, out, fetch, ids, c["anchor"]))
+        self.n_pipelined_frames += 1
+        frame.img_u8 = None  # upload done; free host memory
+        # Adaptive depth: full lag while tracking is comfortable; a cautious
+        # lag of 1 (decisions only one frame late) when the inlier count
+        # runs low. Hard failures at retirement still fall back to the
+        # synchronous ladder.
+        lag = self.pipeline_lag if self._last_n_in >= self.cfg.pipeline_exit_inliers else 1
+        while self._pipe and len(self._pipe) > lag:
+            self._retire_oldest()
+            if self.state != TrackState.OK:
+                break
+        return self._last_retired_T
+
+    def _drop_in_flight(self) -> int:
+        dropped = len(self._pipe)
+        self.n_frames_dropped += dropped
+        for f_drop, *_ in self._pipe:
+            f_drop.img_u8 = None
+        self._pipe.clear()
+        self._chain = None
+        return dropped
+
+    def _retire_oldest(self):
+        """Fetch + apply the oldest in-flight frame's results: bindings,
+        landmark stats, state machine, keyframe policy, trajectory. The
+        block was copied to the host asynchronously at dispatch; this waits
+        for that copy alone."""
+        frame, out, fetch, ids, anchor = self._pipe.popleft()
+        r = dict(zip(self._PIPE_FETCH, fetch.get()))
+        n = len(ids)
+        n_in = int(r["n_inliers"])
+
+        # Fill the frame's host feature arrays from the fetched block
+        # (keyframe insertion and any fallback path below never re-fetch).
+        frame._xy = r["f_xy"]
+        frame._level = r["f_level"]
+        frame._angle = r["f_angle"]
+        frame._desc = r["f_desc"].astype(np.uint32)
+        frame._valid = r["f_valid"]
+        frame._feats_dev = orb.Features(
+            xy=out["f_xy"], level=out["f_level"], angle=out["f_angle"], score=out["f_score"],
+            desc=out["f_desc"], desc_i8=out["f_desc_i8"], valid=out["f_valid"],
+        )
+        frame._xy_dev = out["f_xy"]
+
+        if not bool(r["ok"]) or n_in < self._min_accept_inliers():
+            # Tracking failed `pipeline_lag` frames ago: everything in
+            # flight was predicted from a failing chain. Drop it, then
+            # retry THIS frame through the synchronous ladder exactly as
+            # the frame-synchronous path does before declaring a loss.
+            dropped = self._drop_in_flight()
+            log.warning(
+                "pipelined tracking failed at frame %d (%d inliers); dropping %d in-flight frames, "
+                "retrying synchronously", frame.frame_id, n_in, dropped,
+            )
+            self.frame_causes[frame.frame_id].append(f"pipeline_fail_retry:{n_in}in,drop{dropped}")
+            frame.lm_idx[:] = -1
+            self._track_frame_slow(frame)
+            if self.state == TrackState.OK and frame.R is not None:
+                self._record_trajectory(frame)
+                self._last_retired_T = self._pose_T(frame)
+            return
+
+        sel = r["bound"][:n]
+        vis = r["visible"][:n]
+        idx = r["idx"][:n]
+        m = self.map
+        with self.map_lock:
+            frame.R, frame.t = self._rebase_onto_map(r["R"], r["t"], anchor)
+            # The snapshot is bounded-stale: landmarks fused since it was
+            # built are matched under their OLD id; forward them to their
+            # survivors (dropping them instead starves the next frame's
+            # carry set at the fusion rate). Truly dead (culled) landmarks
+            # are dropped.
+            ids_r = m.resolve_replaced(ids)
+            alive = m.lm_valid[ids_r]
+            sel = sel & alive
+            m.lm_visible[ids_r[vis & alive]] += 1
+            m.lm_found[ids_r[sel]] += 1
+            frame.lm_idx[:] = -1
+            frame.lm_idx[idx[sel]] = ids_r[sel]
+        self._finish_tracked_frame(frame, n_in)
+        if self.state == TrackState.OK:
+            self._record_trajectory(frame)
+            self._last_retired_T = self._pose_T(frame)
+
+    def _drain_pipeline(self):
+        """Retire every in-flight frame (pipeline barrier). Called before
+        anything that reads live tracking state as a whole: trajectory
+        export, shutdown."""
+        while self._pipe:
+            self._retire_oldest()
+        self._chain = None
+
+    def flush_mapping(self):
+        """Drain the tracking pipeline and the background mapping stage
+        (re-raising a failure of the mapping thread). Call before reading a
+        consistent whole-map state."""
+        self._drain_pipeline()
+        if self.worker is not None:
+            self.worker.flush()
+
+    # ------------------------------------------------------------------
+    # Split-phase tracking and the loss ladder
+    # ------------------------------------------------------------------
+
+    def _match_landmarks_into_frame(
+        self, frame: FrameData, lm_ids: np.ndarray, radius_base: float, exclude_bound: bool = True,
+    ):
+        """Project the given landmarks into the frame and match. Returns
+        (lm_ids_matched, feat_idx_matched)."""
+        cap = self.cfg.local_lm_cap
+        lm_ids = lm_ids[:cap]
+        n = len(lm_ids)
+        if n == 0:
+            return np.zeros(0, np.int64), np.zeros(0, np.int64)
+        pad = cap - n
+        m = self.map
+
+        def padf(x, fill=0):
+            return np.concatenate([x, np.full((pad, *x.shape[1:]), fill, x.dtype)])
+
+        put = self._put
+        uv, level, _, ok_d = project_landmarks(
+            put(frame.R, np.float32), put(frame.t, np.float32), put(padf(m.lm_pos[lm_ids])),
+            put(padf(m.lm_normal[lm_ids])), put(padf(m.lm_min_dist[lm_ids])), put(padf(m.lm_max_dist[lm_ids])),
+            put(padf(m.lm_valid[lm_ids], False)),
+            self.fx, self.fy, self.cx, self.cy, float(self.cfg.width), float(self.cfg.height),
+        )
+        f_xy, f_level, f_bits, f_valid, _ = self._dev_feats(frame)
+        if exclude_bound:
+            f_valid = f_valid & put(frame.lm_idx < 0)
+        idx_d, mok_d = match_by_projection_leveled(
+            put(padf(m.lm_desc_i8[lm_ids])), ok_d, uv, level, radius_base, f_bits, f_xy, f_level, f_valid,
+        )
+        ok, idx, mok = fetch_block((ok_d, idx_d, mok_d))
+        m.lm_visible[lm_ids[ok[:n]]] += 1
+        mok = mok[:n]
+        idx = idx[:n]
+        sel = np.nonzero(mok)[0]
+        # Deduplicate features matched by multiple landmarks (keep first).
+        feat = idx[sel]
+        _, first = np.unique(feat, return_index=True)
+        sel = sel[first]
+        return lm_ids[sel], idx[sel]
+
+    def _pose_optimize(self, frame: FrameData) -> int:
+        """Motion-only pose optimization over the frame's bound features;
+        unbinds the outliers and returns the inlier count."""
+        from ..optim import pose_opt
+
+        bound = np.nonzero(frame.lm_idx >= 0)[0]
+        if len(bound) < 3:
+            return 0
+        cap = self.cfg.local_lm_cap
+        bound = bound[:cap]
+        pad = cap - len(bound)
+        Xw = np.concatenate([self.map.lm_pos[frame.lm_idx[bound]], np.zeros((pad, 3), np.float32)])
+        uv_c = np.concatenate(
+            [frame.xy[bound] - [self.cx, self.cy], np.zeros((pad, 2), np.float32)]
+        ).astype(np.float32)
+        sig2 = np.concatenate([self._feat_sigma2(frame.level[bound]), np.ones(pad, np.float32)])
+        valid = np.concatenate([np.ones(len(bound), bool), np.zeros(pad, bool)])
+        put = self._put
+        res = pose_opt.pose_optimization(
+            put(frame.R, np.float32), put(frame.t, np.float32), put(Xw), put(uv_c), put(sig2), put(valid),
+            self.fx, self.fy,
+        )
+        frame.R, frame.t, inl = fetch_block((res.R, res.t, res.inliers))
+        inl = inl[: len(bound)]
+        # Unbind outliers (the reference clears mvpMapPoints for outliers).
+        frame.lm_idx[bound[~inl]] = -1
+        self.map.lm_found[frame.lm_idx[bound[inl]]] += 1
+        return int(inl.sum())
+
+    def _track_frame_slow(self, frame: FrameData):
+        """Split-phase tracking (TrackWithMotionModel with its wide retry,
+        TrackReferenceKeyFrame, TrackLocalMap), each stage a device program
+        with its own result fetch: the ladder a frame climbs before a loss
+        is declared."""
+        self._predict_pose(frame)
+        m = self.map
+
+        # 1) Motion-model tracking vs the last frame's landmarks.
+        last_lms = np.unique(self.last.lm_idx[self.last.lm_idx >= 0])
+        last_lms = last_lms[m.lm_valid[last_lms]]
+        lm_hit, feat_hit = self._match_landmarks_into_frame(frame, last_lms, 15.0)
+        if len(lm_hit) < self.cfg.min_track_matches:
+            lm_hit2, feat_hit2 = self._match_landmarks_into_frame(frame, last_lms, 30.0)
+            if len(lm_hit2) > len(lm_hit):
+                lm_hit, feat_hit = lm_hit2, feat_hit2
+        frame.lm_idx[feat_hit] = lm_hit
+        n_in = self._pose_optimize(frame)
+        log.debug(
+            "frame %d stage1: %d last-lms, %d hits, %d inliers", frame.frame_id, len(last_lms), len(lm_hit), n_in,
+        )
+
+        if n_in < self.cfg.min_track_inliers:
+            # Fallback: reference-KF matching (TrackReferenceKeyFrame).
+            frame.lm_idx[:] = -1
+            frame.R = self.last.R.copy()
+            frame.t = self.last.t.copy()
+            put = self._put
+            _, _, f_bits, f_valid, f_angle = self._dev_feats(frame)
+            idx_d, ok_d = match_bow_like(
+                put(self._kf_bits(self.ref_kf)), put(m.kf_feat_valid[self.ref_kf]), put(m.kf_angle[self.ref_kf]),
+                f_bits, f_valid, f_angle,
+            )
+            idx, ok = fetch_block((idx_d, ok_d))
+            ref_lm = m.kf_lm_idx[self.ref_kf]
+            sel = np.nonzero(ok & (ref_lm >= 0))[0]
+            frame.lm_idx[idx[sel]] = ref_lm[sel]
+            n_in = self._pose_optimize(frame)
+            if n_in < self.cfg.min_track_inliers:
+                self._set_lost(frame)
+                return
+
+        # 2) Track local map.
+        local_kfs = self._local_keyframes(frame)
+        local_lms = m.local_map_landmarks(local_kfs)
+        lm_hit, feat_hit = self._match_landmarks_into_frame(frame, local_lms, 6.0)
+        frame.lm_idx[feat_hit] = lm_hit
+        n_in = self._pose_optimize(frame)
+        log.debug(
+            "frame %d stage2: %d local-lms, %d new hits, %d inliers", frame.frame_id, len(local_lms), len(lm_hit), n_in,
+        )
+
+        if n_in < self._min_accept_inliers():
+            self._set_lost(frame)
+            return
+
+        self._finish_tracked_frame(frame, n_in)
+
+    def _set_lost(self, frame: FrameData):
+        """Track failure from OK: enter the resilience ladder
+        OK -> RECENTLY_LOST -> LOST. On an established map the tracker keeps
+        the last pose and the constant-velocity motion model for
+        `time_recently_lost` seconds and tries to re-acquire the map each
+        frame: the dominant loss mode under a lagging mapping stage is
+        transient frontier starvation, and the last healthy velocity
+        extrapolates the true view for tens of frames."""
+        n_kf = self.map.n_keyframes()
+        frame.lm_idx[:] = -1
+        self.n_lost_events += 1
+        if n_kf > 10:
+            log.warning("tracking RECENTLY_LOST at frame %d (%d KFs)", frame.frame_id, n_kf)
+            self.state = TrackState.RECENTLY_LOST
+            self.lost_t = frame.timestamp
+        else:
+            log.warning("tracking LOST at frame %d (%d KFs)", frame.frame_id, n_kf)
+            self.state = TrackState.LOST
+            self.velocity = None
+            frame.R = None
+            frame.t = None
+        self.last = frame
+
+    def _recently_lost_step(self, frame: FrameData):
+        """One frame while RECENTLY_LOST: predict the pose (constant
+        velocity) and try to RE-ACQUIRE the local map around the reference
+        keyframe with a wide search window. Where that fails the reference
+        falls back to full relocalization; relocalization is not ported
+        (ROADMAP A10), so such a frame is counted in `n_lost_frames` and the
+        kept pose carries the prediction to the next frame. Falls to LOST
+        after `time_recently_lost` seconds; LOST stays LOST."""
+        m = self.map
+        recovered = False
+        if self.last is not None and self.last.R is not None:
+            self._predict_pose(frame)
+            # Re-acquisition: project the reference-KF neighbourhood's
+            # landmarks into the predicted pose with a wide window.
+            if self.ref_kf >= 0 and m.kf_valid[self.ref_kf]:
+                neigh, _ = m.covisible_keyframes(self.ref_kf, min_weight=15)
+                kfs = np.asarray([self.ref_kf, *neigh[:10]], np.int64)
+                local_lms = m.local_map_landmarks(kfs)
+                lm_hit, feat_hit = self._match_landmarks_into_frame(frame, local_lms, 15.0)
+                frame.lm_idx[feat_hit] = lm_hit
+                log.debug(
+                    "recently-lost frame %d: %d local lms, %d hits", frame.frame_id, len(local_lms), len(lm_hit),
+                )
+                if len(lm_hit) >= 20:
+                    n_in = self._pose_optimize(frame)
+                    if n_in >= 30:
+                        log.info("re-acquired tracking at frame %d (%d inliers)", frame.frame_id, n_in)
+                        recovered = True
+            if not recovered:
+                self.n_lost_frames += 1
+                self.last = frame
+        else:
+            self.n_lost_frames += 1
+            frame.R = None
+            frame.t = None
+            self.last = frame
+        if recovered:
+            self.state = TrackState.OK
+            self.velocity = None
+            self.last = frame
+        elif frame.timestamp - self.lost_t > self.cfg.time_recently_lost:
+            log.warning(
+                "tracking LOST at frame %d (RECENTLY_LOST for %.1f s)",
+                frame.frame_id, frame.timestamp - self.lost_t,
+            )
+            self.state = TrackState.LOST
+            self.velocity = None
 
     def _finish_tracked_frame(self, frame: FrameData, n_in: int):
         """Post-track bookkeeping: motion model update, keyframe policy,
@@ -1021,6 +1594,19 @@ class Tracker:
                 and frames_since_kf >= self.cfg.kf_min_interval
             )
         ) and n_in > 15
+        if need and self.worker is not None and not self.worker.accepting():
+            # Back-pressure: mapping is saturated; skip this insertion and
+            # retry next frame. Exception: when tracking is starving
+            # (inliers well below the ref ratio or a long gap since the
+            # last keyframe), insert anyway: losing the map costs far more
+            # than a deeper queue.
+            starving = (
+                frames_since_kf >= self.cfg.kf_max_interval
+                or n_in < 0.5 * self.cfg.kf_ref_ratio * max(ref_tracked, 1)
+            )
+            if not starving:
+                self.n_kf_skipped_backpressure += 1
+                need = False
         if need:
             with self.timers.span("new_kf"):
                 self._insert_keyframe(frame)
@@ -1051,9 +1637,18 @@ class Tracker:
     # ------------------------------------------------------------------
 
     def _insert_keyframe(self, frame: FrameData):
-        """Keyframe insertion (CreateNewKeyFrame) followed by the mapping
-        step on the same thread."""
+        """Keyframe insertion head (the synchronous part of
+        CreateNewKeyFrame): the keyframe row is added on the track thread;
+        the mapping step runs on the mapping worker when there is one, else
+        here."""
         m = self.map
+        if self.worker is not None:
+            # Never block the track thread on a mapping-held lock: skip and
+            # retry next frame.
+            if not self.map_lock.acquire(blocking=False):
+                self.n_kf_skipped_backpressure += 1
+                return
+            self.map_lock.release()
         with self.map_lock:
             try:
                 k = m.add_keyframe(
@@ -1074,15 +1669,44 @@ class Tracker:
             self.ref_kf = k
             self.n_kf_inserted += 1
             self._reanchor_trajectory_records(k)
-        self._mapping_step(k, map_ref=m)
+        if self.worker is not None:
+            self.worker.submit(k, {"map_ref": m})
+            if m.n_keyframes() < self.cfg.young_map_kfs:
+                # Young-map phase: drain before the next frame (see
+                # TrackerConfig.young_map_kfs).
+                self.frame_causes[frame.frame_id].append("young_map_drain")
+                self.worker.flush()
+        else:
+            self._mapping_step(k, map_ref=m)
+
+    def _mapping_step_batch(self, ks: list[int], map_ref: MapState):
+        """Catch-up processing of a drained keyframe queue: older keyframes
+        are registered (landmark statistics) and the newest gets the full
+        mapping step; its triangulation pair set always includes the most
+        recent keyframes, so the skipped keyframes' fresh features still
+        seed the map frontier. (The reference also hands each registered
+        keyframe to loop detection: ROADMAP A10.)"""
+        m = map_ref
+        live = [k for k in ks if m is self.map and m.kf_valid[k]]
+        if not live:
+            return
+        for k in live[:-1]:
+            seen = m.kf_lm_idx[k][m.kf_lm_idx[k] >= 0]
+            m.update_landmark_stats(np.unique(seen))
+        log.info("mapping catch-up: registered %d queued KFs, full step on %d", len(live) - 1, live[-1])
+        self._mapping_step(live[-1], map_ref=m)
 
     def _mapping_step(self, k: int, map_ref: MapState):
         """The LocalMapping work for one keyframe (LocalMapping::Run loop
         body): triangulate, fuse, cull landmarks, window BA, cull
-        keyframes."""
+        keyframes. Runs on the caller's thread or on the MappingWorker."""
         m = map_ref
         if m is not self.map or not m.kf_valid[k]:
             return
+        # Keyframes already waiting behind this one: the step is
+        # "interrupted" (LocalMapping::InterruptBA) and skips keyframe
+        # culling, the one deferrable stage.
+        interrupted = self.worker is not None and self.worker.q.qsize() > 0
         with self.timers.span("map_step"):
             neigh, _ = m.covisible_keyframes(k, min_weight=15, top=self.cfg.local_window_kfs)
             # Triangulation pair set = temporally newest keyframes first,
@@ -1127,15 +1751,23 @@ class Tracker:
             with self.map_lock:
                 with self.timers.span("map_cull_lm"):
                     self._cull_landmarks(k)
-            # Window BA on every keyframe.
+            # The map FRONTIER of this step is now fresh (triangulations,
+            # fusion forwarding and the landmark cull all landed): release
+            # the track thread's bounded-staleness wait so that it tracks
+            # against it while the window BA below solves concurrently.
+            if self.worker is not None:
+                self.worker.release_frontier()
+                interrupted = interrupted or not self.worker.q.empty()
+            # Window BA on every keyframe, interrupted or not.
             window = [k] + [int(x) for x in neigh[: self.cfg.ba_kf_cap - 1]]
             with self.timers.span("map_local_ba_dispatch"):
                 ba_ctx = self._local_ba_dispatch(window, iters=self.cfg.ba_iters_per_kf)
 
             # Redundant-keyframe culling (LocalMapping::KeyFrameCulling).
-            with self.map_lock:
-                with self.timers.span("map_cull_kf"):
-                    self._cull_keyframes(k)
+            if not interrupted:
+                with self.map_lock:
+                    with self.timers.span("map_cull_kf"):
+                        self._cull_keyframes(k)
 
             if ba_ctx is not None:
                 with self.timers.span("map_local_ba"):
@@ -1627,7 +2259,9 @@ class Tracker:
 
     def export_trajectory(self):
         """Return (timestamps, Twc 4x4 array) in the world frame, TUM-style
-        camera-to-world (SaveTrajectoryTUM semantics)."""
+        camera-to-world (SaveTrajectoryTUM semantics). Drains the pipeline
+        and the mapping worker first."""
+        self.flush_mapping()
         ts, poses = [], []
         m = self.map
         for fid, t, map_id, k, R_cr, t_cr in self.trajectory:

@@ -71,9 +71,9 @@ def so3_left_jacobian(w: torch.Tensor) -> torch.Tensor:
     return so3_right_jacobian(-w)
 
 
-def rot_to_quat(R: torch.Tensor) -> torch.Tensor:
-    """(...,3,3) -> unit quaternion (...,4) as (x,y,z,w), w >= 0
-    (branch-free Shepperd extraction)."""
+def _quat_unnormalized(R: torch.Tensor) -> torch.Tensor:
+    """(...,3,3) -> the best-conditioned of the four Shepperd candidates,
+    (x,y,z,w) up to a positive scale and a sign."""
     m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
     m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
     m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
@@ -90,8 +90,28 @@ def rot_to_quat(R: torch.Tensor) -> torch.Tensor:
     k = torch.argmax(mags, dim=-1)
     cands = torch.stack([cx, cy, cz, cw], dim=-2)  # (...,4cand,4)
     idx = k[..., None, None].expand(*k.shape, 1, 4)
-    q = torch.gather(cands, -2, idx).squeeze(-2)
+    return torch.gather(cands, -2, idx).squeeze(-2)
+
+
+def rot_to_quat(R: torch.Tensor) -> torch.Tensor:
+    """(...,3,3) -> unit quaternion (...,4) as (x,y,z,w), w >= 0
+    (branch-free Shepperd extraction)."""
+    q = _quat_unnormalized(R)
     q = q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+    return torch.where(q[..., 3:4] < 0, -q, q)
+
+
+def rot_to_quat_files(R: torch.Tensor) -> torch.Tensor:
+    """`rot_to_quat` for trajectory files that are compared byte by byte
+    with the reference's: float32, with the squared norm accumulated in
+    index order by fused multiply-adds, which is how the reference's CPU
+    build rounds it (a file prints 7 decimals, so the last bit of a float32
+    shows). Each fused step is evaluated in float64 and rounded once."""
+    q = _quat_unnormalized(R.float())
+    s = torch.zeros_like(q[..., 0])
+    for i in range(4):
+        s = (q[..., i].double() * q[..., i].double() + s.double()).float()
+    q = q / torch.sqrt(s)[..., None]
     return torch.where(q[..., 3:4] < 0, -q, q)
 
 

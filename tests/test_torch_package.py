@@ -29,7 +29,10 @@ def test_port_imports_no_jax():
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for m in mods: importlib.import_module(m)\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith(('jax.', 'jaxlib', 'orbslam3_cpp_fork_tpu.')) or k == 'orbslam3_cpp_fork_tpu')\n"
-        "assert len(mods) >= 25, mods\n"
+        "assert len(mods) >= 29, mods\n"
+        "for m in ('runtime.mapping_worker', 'runtime.system', 'utils.trajectory', 'utils.settings'):\n"
+        "    assert p.__name__ + '.' + m in mods, m\n"
+        "assert 'yaml' not in sys.modules, 'yaml is imported only inside the YAML reader'\n"
         "assert not bad, bad\n"
         "print(len(mods))\n"
     )
@@ -38,15 +41,17 @@ def test_port_imports_no_jax():
 
 
 def test_no_source_line_imports_jax():
-    """No module of the port, and not the chip smoke, has an import line
-    naming JAX or the JAX package (the new mapping modules included)."""
+    """No module of the port, and neither the chip smoke nor the port's
+    bench script, has an import line naming JAX or the JAX package (the
+    modules of the asynchronous runtime included)."""
     import re
 
     pat = re.compile(r"^\s*(import|from)\s+(jax|orbslam3_cpp_fork_tpu[. ])")
-    files = sorted((REPO / "orbslam3_cpp_fork_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = sorted((REPO / "orbslam3_cpp_fork_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "bench_torch.py"]
     names = {f.relative_to(REPO).as_posix() for f in files}
     for must in ("ops/geometry.py", "ops/ransac.py", "optim/local_ba.py", "models/map_state.py",
-                 "native/__init__.py", "runtime/tracker.py", "utils/timers.py"):
+                 "native/__init__.py", "runtime/tracker.py", "utils/timers.py", "runtime/mapping_worker.py",
+                 "runtime/system.py", "utils/trajectory.py", "utils/settings.py"):
         assert f"orbslam3_cpp_fork_tpu_torch/{must}" in names, must
     bad = [f"{f}:{i + 1}" for f in files for i, line in enumerate(f.read_text().splitlines()) if pat.match(line)]
     assert not bad, bad
@@ -55,6 +60,18 @@ def test_no_source_line_imports_jax():
 def test_chip_smoke_imports_no_jax():
     out = _run("import sys, chip_smoke\nassert 'jax' not in sys.modules and 'orbslam3_cpp_fork_tpu' not in sys.modules")
     assert out.returncode == 0, out.stderr
+
+
+def test_bench_torch_imports_no_jax():
+    out = _run("import sys, bench_torch\nassert 'jax' not in sys.modules and 'orbslam3_cpp_fork_tpu' not in sys.modules")
+    assert out.returncode == 0, out.stderr
+
+
+def test_bench_torch_needs_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the no-card refusal cannot be observed")
+    out = subprocess.run([sys.executable, str(REPO / "bench_torch.py")], capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0 and "needs a CUDA card" in out.stderr and not out.stdout.strip()
 
 
 def test_chip_smoke_fails_without_a_card_or_a_checkout(tmp_path):

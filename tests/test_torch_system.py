@@ -1,0 +1,297 @@
+"""The port's trajectory files, settings loader and mono `System` facade
+against the reference's.
+
+`write_tum` / `write_kitti` on the same seeded poses give byte-equal files and
+`read_tum` reads them back to the same arrays (1e-6: float32 quaternions on
+both sides); `load_settings` on the same YAML text gives the same values; the
+`System` facade scales its camera as the reference does and runs the default
+(asynchronous) mode end to end on "cpu"; what is not ported is refused by
+name.
+"""
+
+import dataclasses
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from orbslam3_cpp_fork_tpu.ops import camera as jcam
+from orbslam3_cpp_fork_tpu.utils import settings as jsettings
+from orbslam3_cpp_fork_tpu.utils import trajectory as jtraj
+from orbslam3_cpp_fork_tpu_torch.datasets import synthetic
+from orbslam3_cpp_fork_tpu_torch.ops.camera import Camera
+from orbslam3_cpp_fork_tpu_torch.runtime.system import System
+from orbslam3_cpp_fork_tpu_torch.runtime.tracker import Sensor, TrackState
+from orbslam3_cpp_fork_tpu_torch.utils import settings as tsettings
+from orbslam3_cpp_fork_tpu_torch.utils import trajectory as ttraj
+from orbslam3_cpp_fork_tpu_torch.utils.evaluation import ate_rmse
+
+YAML = """%YAML:1.0
+File.version: "1.0"
+Camera.type: "PinHole"
+Camera1.fx: 458.654
+Camera1.fy: 457.296
+Camera1.cx: 367.215
+Camera1.cy: 248.375
+Camera1.k1: -0.28340811
+Camera1.k2: 0.07395907
+Camera1.p1: 0.00019359
+Camera1.p2: 0.00001762
+Camera.width: 752
+Camera.height: 480
+Camera.newWidth: 376
+Camera.newHeight: 240
+Camera.fps: 20
+Camera.RGB: 1
+ORBextractor.nFeatures: 1200
+ORBextractor.scaleFactor: 1.2
+ORBextractor.nLevels: 8
+ORBextractor.iniThFAST: 20
+ORBextractor.minThFAST: 7
+"""
+
+LEGACY_YAML = """%YAML:1.0
+Camera.type: "PinHole"
+Camera.fx: 435.2
+Camera.fy: 435.2
+Camera.cx: 367.45
+Camera.cy: 252.2
+Camera.k1: 0.0
+Camera.k2: 0.0
+Camera.p1: 0.0
+Camera.p2: 0.0
+Camera.width: 752
+Camera.height: 480
+Camera.fps: 20.0
+Camera.bf: 47.9
+Camera.RGB: 1
+ThDepth: 35.0
+ORBextractor.nFeatures: 1200
+"""
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The shapes here are small and two Python threads dispatch at once: with
+    the default thread count every op wakes a team of OpenMP threads that spin
+    against the other test workers. One intra-op thread is faster."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _poses(seed, n=40):
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(n, 4))
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    x, y, z, w = q.T
+    R = np.stack([
+        np.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)], -1),
+        np.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)], -1),
+        np.stack([2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)], -1),
+    ], -2)
+    T = np.tile(np.eye(4), (n, 1, 1))
+    T[:, :3, :3] = R
+    T[:, :3, 3] = rng.uniform(-5, 5, (n, 3))
+    # Rotations by nearly pi and the identity: every branch of the quaternion extraction.
+    T[0, :3, :3] = np.eye(3)
+    T[1, :3, :3] = np.diag([1.0, -1.0, -1.0])
+    T[2, :3, :3] = np.diag([-1.0, 1.0, -1.0])
+    T[3, :3, :3] = np.diag([-1.0, -1.0, 1.0])
+    return np.sort(rng.uniform(0, 1e4, n)), T
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_trajectory_files_are_byte_equal(tmp_path, seed):
+    ts, Twc = _poses(seed)
+    for name, args in (("tum", (ts, Twc)), ("kitti", (Twc,))):
+        a, b = tmp_path / f"ref.{name}", tmp_path / f"got.{name}"
+        getattr(jtraj, f"write_{name}")(str(a), *args)
+        getattr(ttraj, f"write_{name}")(str(b), *args)
+        assert a.read_bytes() == b.read_bytes(), f"write_{name}: tolerance byte-equal"
+        assert len(a.read_text().splitlines()) == len(ts)
+    ts_r, T_r = jtraj.read_tum(str(tmp_path / "ref.tum"))
+    ts_g, T_g = ttraj.read_tum(str(tmp_path / "ref.tum"))
+    assert np.array_equal(ts_g, ts_r) and np.abs(T_g - T_r).max() <= 1e-6, "read_tum: tolerance 1e-6"
+    assert np.abs(T_g[:, :3, 3] - Twc[:, :3, 3]).max() <= 1e-6 and np.abs(T_g[:, :3, :3] - Twc[:, :3, :3]).max() <= 1e-5
+    empty = tmp_path / "empty.tum"
+    empty.write_text("# no poses\n")
+    assert ttraj.read_tum(str(empty))[1].shape == (0, 4, 4)
+    gt = tmp_path / "gt.csv"
+    gt.write_text("#timestamp,p\n1000000000,1.0,2.0,3.0,1,0,0,0\n")
+    assert np.array_equal(ttraj.read_euroc_gt(str(gt))[1], jtraj.read_euroc_gt(str(gt))[1])
+
+
+@pytest.mark.parametrize("text", [YAML, LEGACY_YAML], ids=["v1", "legacy"])
+def test_load_settings_matches_the_reference(tmp_path, text):
+    p = tmp_path / "settings.yaml"
+    p.write_text(text)
+    ref, got = jsettings.load_settings(str(p)), tsettings.load_settings(str(p))
+    for f in dataclasses.fields(tsettings.Settings):
+        a, b = getattr(got, f.name), getattr(ref, f.name)
+        if f.name == "camera":
+            assert isinstance(a, Camera)
+            for k in ("fx", "fy", "cx", "cy"):
+                assert getattr(a, k) == float(getattr(b, k)), k
+            assert np.array_equal(np.asarray(a.dist, np.float32), np.asarray(b.dist))
+        else:
+            assert a == b, f.name
+    assert [f.name for f in dataclasses.fields(tsettings.Settings)] == [f.name for f in dataclasses.fields(jsettings.Settings)]
+
+
+def test_settings_need_no_yaml_package_until_a_file_is_read(tmp_path, monkeypatch):
+    """`yaml` is imported inside the YAML reader only: a Settings object made
+    in code works where the package is absent."""
+    src = open(tsettings.__file__).read()
+    assert "\nimport yaml" not in src and "    import yaml" in src
+    monkeypatch.setitem(sys.modules, "yaml", None)  # makes `import yaml` fail
+    s = _settings(320, 240)
+    assert s.camera.fx == 300.0
+    p = tmp_path / "s.yaml"
+    p.write_text(YAML)
+    with pytest.raises(ImportError):
+        tsettings.load_settings(str(p))
+    p.write_text(YAML.replace("PinHole", "KannalaBrandt8"))
+    monkeypatch.delitem(sys.modules, "yaml")
+    with pytest.raises(NotImplementedError, match="A11"):
+        tsettings.load_settings(str(p))
+
+
+def _settings(w, h, camera=None, **kw):
+    return tsettings.Settings(
+        camera_type="PinHole", camera=camera or Camera.pinhole(300.0, 300.0, w / 2, h / 2), width=w, height=h, fps=30.0, rgb=False,
+        n_features=400, scale_factor=1.2, n_levels=8, ini_th_fast=20, min_th_fast=7, **kw,
+    )
+
+
+def test_camera_scaling_matches_the_reference():
+    cam = Camera.pinhole(458.654, 457.296, 367.215, 248.375, (-0.2834, 0.0739, 1.9e-4, 1.7e-5, 0.0))
+    ref = jcam.Camera.pinhole(458.654, 457.296, 367.215, 248.375, (-0.2834, 0.0739, 1.9e-4, 1.7e-5, 0.0))
+    a, b = cam.scaled(0.5, 0.5), ref.scaled(0.5, 0.5)
+    c, d = cam.scaled(376 / 752, 200 / 480), ref.scaled(376 / 752, 200 / 480)
+    for x, y in ((a, b), (c, d)):
+        assert (x.fx, x.fy, x.cx, x.cy) == (float(y.fx), float(y.fy), float(y.cx), float(y.cy)), "tolerance: exact (f32)"
+        assert x.dist == cam.dist and x.kind == cam.kind
+
+
+def test_system_builds_the_tracker_configuration(tmp_path):
+    p = tmp_path / "settings.yaml"
+    p.write_text(YAML)
+    system = System(str(p), Sensor.MONOCULAR, enable_loop_closing=False, device="cpu")
+    try:
+        cfg = system.tracker.cfg
+        assert (cfg.width, cfg.height) == (376, 240) and system.get_image_scale() == 0.5
+        assert cfg.camera.fx == float(np.float32(np.float32(458.654) * np.float32(0.5)))
+        assert cfg.orb.n_features == 1200 and cfg.kf_max_interval == 20
+        assert cfg.async_mapping and system.tracker.pipeline_lag == 2 and system.tracker.worker is not None
+        assert system.tracker.device == torch.device("cpu")
+        assert system.get_tracking_state() == TrackState.NO_IMAGES_YET and not system.is_lost()
+        assert system.get_tracked_map_points().shape == (0,) and system.get_tracked_keypoints_un().shape == (0, 2)
+        rgb = np.zeros((480, 752, 3), np.float32)
+        rgb[..., 1] = 100.0
+        gray = system._preprocess(rgb)
+        assert gray.shape == (240, 376) and gray.dtype == np.float32 and np.allclose(gray, 58.7, atol=1e-3)
+    finally:
+        system.shutdown()
+    assert system.is_shutdown() and system.tracker.worker is None
+    with pytest.raises(RuntimeError, match="shut down"):
+        system.track_monocular(np.zeros((480, 752), np.float32), 0.0)
+
+
+@pytest.mark.parametrize(
+    "kw,item",
+    [
+        (dict(sensor=Sensor.STEREO), "A11"),
+        (dict(sensor=Sensor.IMU_MONOCULAR), "A13"),
+        (dict(use_viewer=True), "A15"),
+        (dict(live_viewer=True), "A15"),
+        (dict(load_atlas="atlas.npz"), "A12"),
+        (dict(), "A10"),  # loop closing is the reference's default and is not ported
+    ],
+)
+def test_system_refuses_what_is_not_ported(kw, item):
+    with pytest.raises(NotImplementedError, match=item):
+        System(_settings(320, 240), **{"device": "cpu", **kw})
+
+
+def test_system_refuses_unported_calls_and_defaults_to_the_card():
+    system = System(_settings(320, 240), enable_loop_closing=False, async_mapping=False, device="cpu")
+    for call, item in ((system.track_stereo, "A11"), (system.track_rgbd, "A11"),
+                       (system.activate_localization_mode, "A10"), (lambda: system.save_atlas("x"), "A12")):
+        with pytest.raises(NotImplementedError, match=item):
+            call()
+    assert system.tracker.worker is None and system.tracker.pipeline_lag == 0
+    system.shutdown()
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError):
+            System(_settings(320, 240), enable_loop_closing=False)  # no device given means the card
+
+
+def test_system_mono_end_to_end_on_the_cpu(tmp_path):
+    """The default mode through the facade: a Settings object made in code,
+    input at twice the working size (resized, camera scaled), 44 frames of the
+    small ring, then shutdown and the three trajectory files."""
+    w, h, n = 320, 240, 44
+    scene = synthetic.make_ring_scene(seed=7, n_points=900, size_range=(5, 9), width=w, height=h)
+    Rs, ts = synthetic.circle_trajectory(n_frames=n, radius=2.5, total_angle=0.8 * np.pi * n / 120)
+    K = scene.K
+    settings = _settings(
+        2 * w, 2 * h, Camera.pinhole(2 * K[0, 0], 2 * K[1, 1], 2 * K[0, 2], 2 * K[1, 2]), new_width=w, new_height=h,
+    )
+    system = System(settings, enable_loop_closing=False, device="cpu")
+    trk = system.tracker
+    trk.cfg.pipeline_min_kfs, trk.cfg.young_map_kfs = 4, 6
+    trk.cfg.map_wait_budget_ms = 5000.0  # a loaded test machine must not starve the tracker of its frontier
+    trk.cfg.local_lm_cap = trk.cfg.ba_lm_cap = 1024
+    trk.cfg.ba_obs_cap = 8192
+    assert trk.cfg.camera.fx == float(np.float32(K[0, 0])) and (trk.cfg.width, trk.cfg.height) == (w, h)
+    for i in range(n):
+        img = synthetic.render_frame(scene, Rs[i], ts[i])
+        big = np.repeat(np.repeat(img, 2, axis=0), 2, axis=1)  # the facade halves it again
+        system.track_monocular(big, 0.05 * i)
+    assert system.get_tracking_state() == TrackState.OK and not system.is_lost() and not system.map_changed()
+    lm = system.get_tracked_map_points()
+    assert lm.shape == (400,) and (lm >= 0).sum() > 30 and system.get_tracked_keypoints_un().shape == (400, 2)
+    worker = trk.worker
+    stats = system.shutdown()
+    assert trk.worker is None and not worker._thread.is_alive() and worker.n_processed >= 1
+    assert stats["track_total"]["count"] == n and "map_step" in stats
+    assert trk.n_pipelined_frames > 5 and trk.n_lost_events == 0 and not trk._pipe
+
+    system.save_trajectory_tum(str(tmp_path / "f.tum"))
+    system.save_keyframe_trajectory_tum(str(tmp_path / "kf.tum"))
+    system.save_trajectory_kitti(str(tmp_path / "f.kitti"))
+    ts_est, Twc = ttraj.read_tum(str(tmp_path / "f.tum"))
+    assert len(ts_est) > 0.8 * n and np.all(np.diff(ts_est) > 0)
+    assert len((tmp_path / "f.kitti").read_text().splitlines()) == len(ts_est)
+    ts_kf, _ = ttraj.read_tum(str(tmp_path / "kf.tum"))
+    assert len(ts_kf) == trk.map.n_keyframes() and np.all(np.diff(ts_kf) > 0)
+    ate = ate_rmse(ts_est, Twc[:, :3, 3], np.arange(n) * 0.05, ts)
+    assert ate.rmse_scaled < 0.15, ate  # a 0.9 m arc; the bar of the 48-frame case of test_torch_pipeline.py is relative
+
+
+def test_shutdown_reraises_a_failure_of_the_mapping_thread():
+    w, h = 320, 240
+    scene = synthetic.make_ring_scene(seed=7, n_points=900, size_range=(5, 9), width=w, height=h)
+    Rs, ts = synthetic.circle_trajectory(n_frames=30, radius=2.5, total_angle=0.8 * np.pi * 30 / 120)
+    K = scene.K
+    system = System(
+        _settings(w, h, Camera.pinhole(K[0, 0], K[1, 1], K[0, 2], K[1, 2])), enable_loop_closing=False, device="cpu",
+    )
+    trk = system.tracker
+    trk.cfg.young_map_kfs = 0
+    trk.cfg.map_wait_budget_ms = 0.0  # race freely: only shutdown can surface the failure
+
+    def boom(k, map_ref):
+        raise RuntimeError("mapping step failed on purpose")
+
+    trk._mapping_step = boom
+    worker = trk.worker
+    for i in range(16):
+        system.track_monocular(synthetic.render_frame(scene, Rs[i], ts[i]), 0.05 * i)
+    assert trk.n_kf_inserted >= 3
+    with pytest.raises(RuntimeError, match="on purpose"):
+        system.shutdown()
+    assert not worker._thread.is_alive(), "the thread is stopped even though shutdown raised"

@@ -5,7 +5,7 @@
     sets; (b) one `_mapping_step` on a map loaded into both through
     `convert.map_state_from_numpy`; (c) the slice as a whole, port only, on
     the scene of tests/test_tracking_e2e.py; (d) configurations outside the
-    slice are refused. A JAX-vs-port run of the whole sequence is marked
+    slice are refused and the asynchronous ones construct. A JAX-vs-port run of the whole sequence is marked
     slow.
 
 Cut to size for the CPU: 600 features (as the reference's e2e test), a map
@@ -243,8 +243,8 @@ def test_mapping_step_parity(tracked, sequence):
         (dict(sensor=tt.Sensor.RGBD), "A11"),
         (dict(sensor=tt.Sensor.IMU_MONOCULAR), "A13"),
         (dict(imu=object()), "A13"),
-        (dict(async_mapping=True), "A9"),
-        (dict(pipeline_lag=2), "A9"),
+        (dict(sensor=tt.Sensor.IMU_STEREO), "A13"),
+        (dict(sensor=tt.Sensor.IMU_RGBD), "A13"),
         (dict(enable_loop_closing=True), "A10"),
     ],
 )
@@ -252,9 +252,33 @@ def test_unsupported_configs_are_refused(kw, item):
     base = dict(camera=convert.camera_from_numpy(400, 400, 320, 240), async_mapping=False, enable_loop_closing=False)
     with pytest.raises(NotImplementedError, match=item):
         tt.MonoTracker(tt.TrackerConfig(**{**base, **kw}), "cpu")
-    # The reference's defaults (async mapping, loop closing) are outside the slice too.
-    with pytest.raises(NotImplementedError):
+    # The reference's default (loop closing) is outside the slice too.
+    with pytest.raises(NotImplementedError, match="A10"):
         tt.MonoTracker(tt.TrackerConfig(camera=base["camera"]), "cpu")
+
+
+@pytest.mark.parametrize(
+    "kw,lag,worker",
+    [(dict(), 2, True), (dict(async_mapping=False), 0, False), (dict(async_mapping=False, pipeline_lag=2), 2, False),
+     (dict(pipeline_lag=0), 0, True)],
+)
+def test_async_and_pipelined_configs_construct(kw, lag, worker):
+    """The reference's default mode (`async_mapping=True`, `pipeline_lag`
+    resolving to 2) constructs, as does every combination of the two."""
+    cfg = tt.TrackerConfig(
+        camera=convert.camera_from_numpy(400, 400, 320, 240), enable_loop_closing=False,
+        orb=OrbParams(n_features=300), map_cfg=MapConfig(max_keyframes=8, max_landmarks=512), **kw,
+    )
+    ref = jt.TrackerConfig(**kw)
+    trk = tt.MonoTracker(cfg, "cpu")
+    try:
+        assert trk.pipeline_lag == lag == (ref.pipeline_lag if ref.pipeline_lag is not None else (2 if ref.async_mapping else 0))
+        assert (trk.worker is not None) == worker
+        assert not trk._pipeline_active(), "a young map never pipelines"
+        assert trk._min_accept_inliers() == cfg.min_localmap_inliers
+    finally:
+        if trk.worker is not None:
+            trk.worker.stop()
 
 
 def test_supported_config_and_device_default():
