@@ -5,13 +5,14 @@ Run from the root of a checkout:  python3 bench_torch.py
 
 Same scene and trajectory as bench.py (the 300-frame synthetic ring at
 752x480, 1000 features; `BENCH_FRAMES` shortens it), through the port's
-`System` facade, without loop closing (not ported yet). Three runs:
+`System` facade with loop closing and the global BA on, as bench.py runs
+(the ring's loop comes at about frame 261). Three runs:
 an untimed free-running warm-up, the frame-synchronous control (its ATE is
 the accuracy of the algorithms with the concurrency layer removed), then the
-timed run in the shipping mode (mapping worker + pipelined tracking) with
-frames delivered at the 20 fps camera rate. Prints one JSON object, as its
-last line, with those of bench.py's keys that exist without loop closing and
-Atlas, and the card's name and power limit. Needs a CUDA card and says so
+timed run in the shipping mode (mapping worker, loop worker, pipelined
+tracking) with frames delivered at the 20 fps camera rate. Prints one JSON
+object, as its last line, with those of bench.py's keys that exist without
+the Atlas, and the card's name and power limit. Needs a CUDA card and says so
 when there is none.
 """
 
@@ -50,7 +51,7 @@ def _run_slam(scene, frames, async_mapping=True, paced=False):
         width=scene.width, height=scene.height, fps=30.0, rgb=False,
         n_features=1000, scale_factor=1.2, n_levels=8, ini_th_fast=20, min_th_fast=7,
     )
-    system = System(settings, async_mapping=async_mapping, enable_loop_closing=False)
+    system = System(settings, async_mapping=async_mapping, enable_loop_closing=True)
     stamps = np.arange(len(frames)) * 0.05
     lat = np.zeros(len(frames))
     t_start = time.perf_counter()
@@ -116,6 +117,7 @@ def main() -> int:
     sync_sys, sync_lat, sync_stamps, sync_t, _ = _run_slam(scene, frames, async_mapping=False)
     sync_ate, sync_cov = _traj_ate(sync_sys.tracker, sync_stamps, ts, len(frames))
     sync_lost = int(sync_sys.tracker.n_lost_events)
+    sync_loops = sync_sys.n_loops_closed
     sync_sys.shutdown()
 
     # Timed pass: frames delivered at the 20 fps camera rate.
@@ -126,6 +128,7 @@ def main() -> int:
     stages = {name: round(s["mean_ms"], 2) for name, s in tracker.timers.summary().items()}
     worker = tracker.worker
     system.shutdown()
+    loop_frames = [e["kf_frame"] for e in tracker.loop_closer.events if e["kind"] == "loop"]
 
     med, p99 = float(np.median(lat)), float(np.quantile(lat, 0.99))
     slow_frames = [
@@ -157,6 +160,9 @@ def main() -> int:
         "n_sync_frames": int(tracker.n_sync_frames),
         "n_fused_declined": int(tracker.n_fused_declined),
         "n_keyframes": int(tracker.map.n_keyframes()),
+        "n_loops_closed": int(system.n_loops_closed),
+        "loop_kf_frames": loop_frames,
+        "sync_n_loops_closed": int(sync_loops),
         "n_kf_skipped_backpressure": int(tracker.n_kf_skipped_backpressure),
         "n_catchup_batches": int(worker.n_batches) if worker else 0,
         "worker_busy_share": round(worker.busy_s / wall, 3) if worker else 0.0,

@@ -1,6 +1,7 @@
 """The state carried across from the reference runtime: camera, local-map
-snapshot, the whole map, a window-BA problem, the tracker configuration and
-the tracker's live state (last frame, motion model, reference keyframe).
+snapshot, the whole map, a window-BA problem, the tracker configuration, the
+tracker's live state (last frame, motion model, reference keyframe,
+trajectory records), the keyframe database and the loop closer's state.
 
 The system has no weights. Its tracking state is the camera and the
 local-map snapshot the reference uploads in Tracker._refresh_dev_local:
@@ -22,6 +23,7 @@ from .models.map_state import MapConfig, MapState
 from .ops.camera import Camera
 from .ops.orb import OrbParams
 from .optim.local_ba import BAProblem
+from .runtime.keyframe_database import KeyFrameDatabase
 from .runtime.localization import LocalMap
 from .runtime.tracker import DeviceKFStore, FrameData, Sensor, Tracker, TrackerConfig, TrackState
 
@@ -197,6 +199,8 @@ def tracker_state_to_numpy(trk) -> dict:
         last=frame_to_numpy(trk.last),
         snapshot_ids=None if snap is None else np.array(snap["ids"]),
         snapshot_anchor=None if anchor is None else (int(anchor[0]), np.array(anchor[1]), np.array(anchor[2])),
+        seen_change_idx=int(trk._seen_change_idx),
+        trajectory=[(int(f), float(t), int(mid), int(k), np.array(R), np.array(tt)) for f, t, mid, k, R, tt in trk.trajectory],
     )
 
 
@@ -204,7 +208,8 @@ def load_tracker_state(trk: Tracker, state: dict, map_arrays: dict | None = None
     """Put a port tracker into a state made by `tracker_state_to_numpy`
     (and, with `map_arrays`, onto the map made by `map_state_to_numpy`).
     The device snapshot is not carried over: the tracker rebuilds it from
-    the map at its next frame, as it does after any map change."""
+    the map at its next frame, as it does after any map change. The
+    trajectory records are not loaded (the new run records its own)."""
     if map_arrays is not None:
         trk.map = map_state_from_numpy(map_arrays)
     trk.state = TrackState[state["state"]]
@@ -216,6 +221,71 @@ def load_tracker_state(trk: Tracker, state: dict, map_arrays: dict | None = None
     trk.lost_t = state["lost_t"]
     trk.velocity = None if state["velocity"] is None else tuple(np.array(v, np.float32) for v in state["velocity"])
     trk.last = frame_from_numpy(state["last"])
+    trk._seen_change_idx = state["seen_change_idx"]
     trk._dev_local = None
     trk._chain = None
     trk._pipe.clear()
+
+
+def kfdb_to_numpy(db) -> dict:
+    """A keyframe database (the reference's or the port's: the attribute
+    names are the same) as numpy: the codebook (None before the vocabulary
+    exists), the word histograms and presence of every row, the stored
+    packed descriptors, the keyframes waiting for the vocabulary and the
+    descriptor pool that will seed it."""
+    return dict(
+        n_words=int(db.n_words), seed=int(db._seed), n_refreshes=int(db.n_refreshes),
+        codebook=None if db.codebook is None else np.array(db.codebook),
+        hists=np.array(db.hists), present=np.array(db.present),
+        desc_store={int(k): (np.array(d), np.array(v)) for k, (d, v) in db._desc_store.items()},
+        pending={int(k): (np.array(d), np.array(v)) for k, (d, v) in db._pending.items()},
+        pool=[np.array(p) for p in db._pool], pool_count=int(db._pool_count),
+    )
+
+
+def kfdb_from_numpy(d: dict, device) -> KeyFrameDatabase:
+    """The port's KeyFrameDatabase in the state of `kfdb_to_numpy`."""
+    db = KeyFrameDatabase(d["hists"].shape[0], get_device(device), n_words=d["n_words"], seed=d["seed"])
+    db.hists[...] = d["hists"]
+    db.present[...] = d["present"]
+    db.n_refreshes = d["n_refreshes"]
+    db._desc_store = {k: (dd.copy(), v.copy()) for k, (dd, v) in d["desc_store"].items()}
+    db._pending = {k: (dd.copy(), v.copy()) for k, (dd, v) in d["pending"].items()}
+    db._pool = [p.copy() for p in d["pool"]]
+    db._pool_count = d["pool_count"]
+    if d["codebook"] is not None:
+        db.codebook = d["codebook"].astype(np.int8)
+        db._cb_j = db._put(db.codebook)
+    return db
+
+
+def loop_state_to_numpy(lc) -> dict:
+    """A loop closer's state: the pending hypothesis (gid, count, (s, R, t),
+    keyframe), the last corrected keyframe, the persisted loop edges and the
+    number of loops closed."""
+    p = lc.pending
+    return dict(
+        pending=None if p is None else (int(p[0]), int(p[1]), (float(p[2][0]), np.array(p[2][1]), np.array(p[2][2])), int(p[3])),
+        last_loop_kf=int(lc.last_loop_kf),
+        loop_edges=[(int(mid), int(i), int(j), (float(S[0]), np.array(S[1]), np.array(S[2]))) for mid, i, j, S in lc.loop_edges],
+        n_loops_closed=int(lc.n_loops_closed),
+    )
+
+
+def load_loop_state(lc, d: dict) -> None:
+    """Put a port loop closer into a state made by `loop_state_to_numpy`."""
+    p = d["pending"]
+    lc.pending = None if p is None else (p[0], p[1], (p[2][0], p[2][1].copy(), p[2][2].copy()), p[3])
+    lc.last_loop_kf = d["last_loop_kf"]
+    lc.loop_edges = [(mid, i, j, (S[0], S[1].copy(), S[2].copy())) for mid, i, j, S in d["loop_edges"]]
+    lc.n_loops_closed = d["n_loops_closed"]
+
+
+def load_place_recognition(trk: Tracker, kfdb: dict, loop: dict | None = None) -> None:
+    """Give a port tracker (and its loop closer) the keyframe database of
+    `kfdb_to_numpy` and, with `loop`, the loop state of `loop_state_to_numpy`."""
+    trk.kfdb = kfdb_from_numpy(kfdb, trk.device)
+    if trk.loop_closer is not None:
+        trk.loop_closer.kfdb = trk.kfdb
+        if loop is not None:
+            load_loop_state(trk.loop_closer, loop)

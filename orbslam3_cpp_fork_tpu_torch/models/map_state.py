@@ -26,6 +26,7 @@ math stays in ops/ and optim/.
 from __future__ import annotations
 
 import dataclasses
+import threading
 
 import numpy as np
 
@@ -139,7 +140,11 @@ class MapState:
         # mutators below; code that writes `obs` directly (landmark fusion,
         # map merge) must call `mark_obs_dirty()` and the mirror is rebuilt
         # lazily on the next query. Falls back to dense numpy if no
-        # toolchain.
+        # toolchain. Every access to the mirror, and every `obs` write that
+        # the mirror follows, holds `_graph_lock`: ctypes calls release the
+        # interpreter lock, and the track, mapping and loop threads all read
+        # covisibility while others write the graph.
+        self._graph_lock = threading.RLock()
         self._native = None
         self._native_dirty = False
         try:
@@ -209,17 +214,18 @@ class MapState:
         # Update incidence + landmark observation counts.
         seen = self.kf_lm_idx[k]
         seen = seen[seen >= 0]
-        self.obs[k, :] = False
-        self.obs[k, seen] = True
-        self.lm_obs_count[seen] += 1
-        # Validity flips LAST: concurrent lock-free readers (the track
-        # thread under the mapping pipeline) must never see a
-        # half-initialized row behind a True validity bit.
-        self.kf_valid[k] = True
-        if self._native is not None and not self._native_dirty:
-            self._native.add_keyframe(int(k))
-            if len(seen):
-                self._native.add_observations(int(k), seen)
+        with self._graph_lock:
+            self.obs[k, :] = False
+            self.obs[k, seen] = True
+            self.lm_obs_count[seen] += 1
+            # Validity flips LAST: concurrent lock-free readers (the track
+            # thread under the mapping pipeline) must never see a
+            # half-initialized row behind a True validity bit.
+            self.kf_valid[k] = True
+            if self._native is not None and not self._native_dirty:
+                self._native.add_keyframe(int(k))
+                if len(seen):
+                    self._native.add_observations(int(k), seen)
         return k
 
     def remove_keyframe(self, k: int):
@@ -249,13 +255,14 @@ class MapState:
         self.kf_imu_n[k] = 0
         seen = self.kf_lm_idx[k]
         seen = seen[seen >= 0]
-        self.lm_obs_count[seen] -= 1
-        self.kf_valid[k] = False
-        self.kf_feat_valid[k] = False
-        self.kf_lm_idx[k] = -1
-        self.obs[k, :] = False
-        if self._native is not None and not self._native_dirty:
-            self._native.remove_keyframe(int(k))
+        with self._graph_lock:
+            self.lm_obs_count[seen] -= 1
+            self.kf_valid[k] = False
+            self.kf_feat_valid[k] = False
+            self.kf_lm_idx[k] = -1
+            self.obs[k, :] = False
+            if self._native is not None and not self._native_dirty:
+                self._native.remove_keyframe(int(k))
 
     # ------------------------------------------------------------------
     # Inertial state
@@ -367,16 +374,17 @@ class MapState:
         if len(ids) == 0:
             return
         self.lm_valid[ids] = False
-        # Detach observations.
-        ks = np.nonzero(self.obs[:, ids].any(axis=1))[0]
-        for k in ks:
-            mask = np.isin(self.kf_lm_idx[k], ids)
-            self.kf_lm_idx[k][mask] = -1
-        self.obs[:, ids] = False
-        self.lm_obs_count[ids] = 0
-        if self._native is not None and not self._native_dirty:
-            for lm in ids:
-                self._native.remove_landmark(int(lm))
+        with self._graph_lock:
+            # Detach observations.
+            ks = np.nonzero(self.obs[:, ids].any(axis=1))[0]
+            for k in ks:
+                mask = np.isin(self.kf_lm_idx[k], ids)
+                self.kf_lm_idx[k][mask] = -1
+            self.obs[:, ids] = False
+            self.lm_obs_count[ids] = 0
+            if self._native is not None and not self._native_dirty:
+                for lm in ids:
+                    self._native.remove_landmark(int(lm))
 
     def replace_landmark(self, old: int, new: int):
         """Merge landmark `old` into `new` (MapPoint::Replace,
@@ -385,20 +393,21 @@ class MapState:
         counters, invalidate `old`."""
         if old == new or not self.lm_valid[old] or not self.lm_valid[new]:
             return
-        ks = np.nonzero(self.obs[:, old])[0]
-        for ki in ks:
-            for f in np.nonzero(self.kf_lm_idx[ki] == old)[0]:
-                if self.obs[ki, new]:
-                    self.kf_lm_idx[ki, f] = -1  # already observes new
-                else:
-                    self.kf_lm_idx[ki, f] = new
-                    self.obs[ki, new] = True
-                    self.lm_obs_count[new] += 1
-        self.obs[:, old] = False
-        self.lm_valid[old] = False
-        self.lm_obs_count[old] = 0
-        self.lm_replaced[old] = new
-        self.mark_obs_dirty()  # direct obs writes bypass the native mirror
+        with self._graph_lock:
+            ks = np.nonzero(self.obs[:, old])[0]
+            for ki in ks:
+                for f in np.nonzero(self.kf_lm_idx[ki] == old)[0]:
+                    if self.obs[ki, new]:
+                        self.kf_lm_idx[ki, f] = -1  # already observes new
+                    else:
+                        self.kf_lm_idx[ki, f] = new
+                        self.obs[ki, new] = True
+                        self.lm_obs_count[new] += 1
+            self.obs[:, old] = False
+            self.lm_valid[old] = False
+            self.lm_obs_count[old] = 0
+            self.lm_replaced[old] = new
+            self.mark_obs_dirty()  # direct obs writes bypass the native mirror
         self.lm_found[new] += self.lm_found[old]
         self.lm_visible[new] += self.lm_visible[old]
 
@@ -420,14 +429,15 @@ class MapState:
         feat_idx = np.asarray(feat_idx)
         lm_ids = np.asarray(lm_ids)
         # Drop bindings where the feature already has a landmark.
-        fresh = self.kf_lm_idx[k, feat_idx] < 0
-        feat_idx, lm_ids = feat_idx[fresh], lm_ids[fresh]
-        self.kf_lm_idx[k, feat_idx] = lm_ids
-        newly = ~self.obs[k, lm_ids]
-        self.obs[k, lm_ids] = True
-        self.lm_obs_count[lm_ids[newly]] += 1
-        if self._native is not None and not self._native_dirty:
-            self._native.add_observations(int(k), lm_ids)
+        with self._graph_lock:
+            fresh = self.kf_lm_idx[k, feat_idx] < 0
+            feat_idx, lm_ids = feat_idx[fresh], lm_ids[fresh]
+            self.kf_lm_idx[k, feat_idx] = lm_ids
+            newly = ~self.obs[k, lm_ids]
+            self.obs[k, lm_ids] = True
+            self.lm_obs_count[lm_ids[newly]] += 1
+            if self._native is not None and not self._native_dirty:
+                self._native.add_observations(int(k), lm_ids)
 
     # ------------------------------------------------------------------
     # Queries
@@ -436,10 +446,12 @@ class MapState:
     def mark_obs_dirty(self):
         """Call after writing `obs` directly (landmark fusion, map merge,
         checkpoint restore): the native graph mirror rebuilds lazily."""
-        if self._native is not None:
-            self._native_dirty = True
+        with self._graph_lock:
+            if self._native is not None:
+                self._native_dirty = True
 
     def _native_sync(self):
+        """Rebuild a dirty mirror from `obs` (the caller holds `_graph_lock`)."""
         if self._native is None or not self._native_dirty:
             return
         from .. import native as native_mod
@@ -456,12 +468,13 @@ class MapState:
         """(K,) number of landmarks shared with keyframe k
         (KeyFrame::UpdateConnections weight computation). Served by the
         native incremental graph when built; dense matmul fallback."""
-        if self._native is not None:
-            self._native_sync()
-            w = self._native.covis_row(int(k))
-            w[~self.kf_valid] = 0
-            return w
-        w = self.obs.astype(np.int32) @ self.obs[k].astype(np.int32)
+        with self._graph_lock:
+            if self._native is not None:
+                self._native_sync()
+                w = self._native.covis_row(int(k))
+                w[~self.kf_valid] = 0
+                return w
+            w = self.obs.astype(np.int32) @ self.obs[k].astype(np.int32)
         w[k] = 0
         w[~self.kf_valid] = 0
         return w

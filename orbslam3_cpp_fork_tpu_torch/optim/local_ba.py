@@ -121,6 +121,37 @@ def _huber_rho(chi2, d2):
     return torch.where(chi2 <= d2, chi2, 2.0 * torch.sqrt(d2 * torch.clamp_min(chi2, 0.0)) - d2)
 
 
+def _residual_model(p: BAProblem, robust: bool):
+    """The reprojection model shared by `local_ba` and `sparse_ba`:
+    (resid, chi2_of, cost_of, build_cost, d2). Mono rows carry a zero third
+    residual; the chi2 gate is 5.991 (mono) / 7.815 (stereo)."""
+    dev, dt = p.Xw.device, p.Xw.dtype
+    obs_kf, obs_lm = p.obs_kf.long(), p.obs_lm.long()
+    row_w = torch.where(
+        p.obs_stereo[:, None], torch.ones(3, dtype=dt, device=dev), torch.tensor([1.0, 1.0, 0.0], dtype=dt, device=dev)
+    )
+    d2 = torch.where(p.obs_stereo, residuals.CHI2_STEREO, residuals.CHI2_MONO).to(dt)
+
+    def resid(R, t, Xw):
+        r3, Jp3, Jl3, z = residuals.stereo_reprojection(
+            R[obs_kf], t[obs_kf], Xw[obs_lm], p.obs_uvr, p.fx, p.fy, p.bf
+        )
+        return r3 * row_w, Jp3 * row_w[..., None], Jl3 * row_w[..., None], z
+
+    def chi2_of(r):
+        return torch.sum(r * r, dim=-1) / p.obs_sigma2
+
+    def cost_of(chi2, active):
+        rho = _huber_rho(chi2, d2) if robust else chi2
+        return torch.sum(torch.where(active, rho, torch.zeros_like(rho)))
+
+    def build_cost(R, t, Xw, inlier):
+        r, _, _, z = resid(R, t, Xw)
+        return cost_of(chi2_of(r), inlier & p.obs_valid & (z > 0))
+
+    return resid, chi2_of, cost_of, build_cost, d2
+
+
 def local_ba(
     p: BAProblem,
     iters: int = 10,
@@ -145,28 +176,8 @@ def local_ba(
     eye3 = torch.eye(3, dtype=dt, device=dev)
     eyeK = torch.eye(K, dtype=dt, device=dev)
     eye6K = torch.eye(K * 6, dtype=torch.bool, device=dev)
-    row_w = torch.where(
-        p.obs_stereo[:, None], torch.ones(3, dtype=dt, device=dev), torch.tensor([1.0, 1.0, 0.0], dtype=dt, device=dev)
-    )
-    d2 = torch.where(p.obs_stereo, residuals.CHI2_STEREO, residuals.CHI2_MONO).to(dt)
     lm_valid_f = p.lm_valid.to(dt)
-
-    def resid(R, t, Xw):
-        r3, Jp3, Jl3, z = residuals.stereo_reprojection(
-            R[obs_kf], t[obs_kf], Xw[obs_lm], p.obs_uvr, p.fx, p.fy, p.bf
-        )
-        return r3 * row_w, Jp3 * row_w[..., None], Jl3 * row_w[..., None], z
-
-    def chi2_of(r):
-        return torch.sum(r * r, dim=-1) / p.obs_sigma2
-
-    def cost_of(chi2, active):
-        rho = _huber_rho(chi2, d2) if robust else chi2
-        return torch.sum(torch.where(active, rho, torch.zeros_like(rho)))
-
-    def build_cost(R, t, Xw, inlier):
-        r, _, _, z = resid(R, t, Xw)
-        return cost_of(chi2_of(r), inlier & p.obs_valid & (z > 0))
+    resid, chi2_of, cost_of, build_cost, d2 = _residual_model(p, robust)
 
     R, t, Xw = p.R, p.t, p.Xw
     inlier = p.obs_valid if inlier0 is None else inlier0

@@ -1,5 +1,6 @@
-"""Background mapping stage (port of runtime/mapping_worker.py): the
-pipeline analog of the reference's LocalMapping thread.
+"""Background mapping and loop-closing stages (port of
+runtime/mapping_worker.py): the pipeline analogs of the reference's
+LocalMapping and LoopClosing threads.
 
 One host thread consumes a bounded keyframe queue and runs the tracker's
 mapping step (triangulate -> fuse -> cull -> window BA); tracking keeps the
@@ -13,8 +14,9 @@ Concurrency contract:
 - the track thread mutates only per-frame bindings and the visible/found
   counters, and inserts keyframe rows under the lock.
 
-The loop-closing stage of the reference (`LoopWorker`) is not ported yet
-(ROADMAP A10).
+`LoopWorker` consumes every keyframe the mapping stage finishes and runs
+the tracker's loop step (detection, validation, correction) on its own
+thread; a correction reaches the track thread through `big_change_idx`.
 
 Bookkeeping is by counters, each written by one thread only: `submit` counts
 what the producer queued, `_run` what the consumer took and finished. `busy`
@@ -22,7 +24,9 @@ and `wait_idle` compare them, so neither can be fooled by an event that one
 thread sets while the other clears it. The reference clears `frontier` on the
 producer thread, where a step that is just reaching its own frontier can set
 it again over a keyframe that is already queued; here `_run` clears it after
-the dequeue.
+the dequeue. The reference's `LoopWorker` has the same race on its `idle`
+event (`submit` clears it on the producer thread, `_run` sets it when its
+queue looks empty); the port's counts instead.
 """
 
 from __future__ import annotations
@@ -33,6 +37,65 @@ import threading
 import time
 
 log = logging.getLogger("orbslam3_torch.mapping")
+
+
+class LoopWorker:
+    """The place-recognition stage (LoopClosing::Run): consumes every
+    keyframe the mapping stage finishes, one by one, and runs the tracker's
+    loop step without blocking the mapping worker. A failure of the thread
+    is re-raised at the next `flush`."""
+
+    def __init__(self, tracker):
+        self.tracker = tracker
+        self.q: queue.Queue = queue.Queue()
+        self.error: BaseException | None = None
+        self.n_processed = 0  # keyframes whose loop step ran to its end
+        self.busy_s = 0.0  # wall time spent inside loop steps
+        self._n_submitted = 0  # producer side (the mapping thread)
+        self._n_finished = 0  # consumer side: step over (or failed)
+        self._thread = threading.Thread(target=self._run, name="loop_closing", daemon=True)
+        self._thread.start()
+
+    def submit(self, k: int, map_ref):
+        self._n_submitted += 1
+        self.q.put((k, map_ref))
+
+    def busy(self) -> bool:
+        return self._n_finished != self._n_submitted
+
+    def flush(self):
+        """Block until every queued keyframe is processed; re-raises a
+        failure of the loop thread."""
+        self.q.join()
+        if self.error is not None:
+            err, self.error = self.error, None
+            raise err
+
+    def stop(self):
+        try:
+            self.flush()
+        finally:
+            self.q.put(None)
+            self._thread.join(timeout=30)
+
+    def _run(self):
+        while True:
+            item = self.q.get()
+            if item is None:
+                self.q.task_done()
+                return
+            k, map_ref = item
+            t0 = time.perf_counter()
+            try:
+                self.tracker._loop_step(k, map_ref)
+                self.n_processed += 1
+            except BaseException as e:  # noqa: BLE001 - surfaced at the next flush
+                log.exception("loop step failed for KF %d", k)
+                self.error = e
+            finally:
+                self.busy_s += time.perf_counter() - t0
+                self._n_finished += 1
+                self.q.task_done()
 
 
 class MappingWorker:

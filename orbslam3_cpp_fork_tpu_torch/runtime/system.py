@@ -4,7 +4,8 @@ runtime/system.py, monocular part).
 Owns the tracker; exposes the per-frame `track_monocular` call with input
 pre-processing (RGB -> gray, resize with the camera scaled to match), state
 queries, trajectory export in TUM/KITTI formats and `shutdown`, which
-flushes and stops the mapping worker. Stereo, RGB-D, inertial input, the
+flushes and stops the mapping and loop-closing workers and joins a global BA
+in flight. Loop closing is on by default, as in the reference. Stereo, RGB-D, inertial input, the
 viewers, Atlas save/load and localization mode raise `NotImplementedError`
 naming their ROADMAP item, as the tracker does.
 """
@@ -122,7 +123,13 @@ class System:
     # ------------------------------------------------------------------
 
     def activate_localization_mode(self):
-        raise _not_ported("localization mode", "A10")
+        """Camera-only tracking; keyframe insertion (and so mapping) pauses
+        (System::ActivateLocalizationMode)."""
+        self.tracker.flush_mapping()
+        self.tracker.localization_only = True
+
+    def deactivate_localization_mode(self):
+        self.tracker.localization_only = False
 
     def get_tracking_state(self) -> TrackState:
         return self.tracker.state
@@ -133,10 +140,14 @@ class System:
     def is_shutdown(self) -> bool:
         return self._shutdown
 
+    @property
+    def n_loops_closed(self) -> int:
+        lc = self.tracker.loop_closer
+        return lc.n_loops_closed if lc is not None else 0
+
     def map_changed(self) -> bool:
         """System::MapChanged: true once per big map change (loop closure,
-        global BA, IMU rescale; none of them is ported, so this stays
-        false until they are)."""
+        global BA)."""
         idx = self.tracker.map.big_change_idx
         if idx > self._last_big_change:
             self._last_big_change = idx
@@ -195,15 +206,24 @@ class System:
 
     def shutdown(self) -> dict:
         """System::Shutdown: retire the frames in flight, flush and stop the
-        mapping worker (a failure of its thread is re-raised here, after the
-        thread has been stopped), log and return the timing stats."""
+        mapping worker, then the loop worker, then join the global BA (a
+        failure of any of their threads is re-raised here, after every thread
+        has been stopped), log and return the timing stats."""
         tr = self.tracker
         try:
             tr._drain_pipeline()
         finally:
-            if tr.worker is not None:
-                worker, tr.worker = tr.worker, None
-                worker.stop()
+            try:
+                if tr.worker is not None:
+                    worker, tr.worker = tr.worker, None
+                    worker.stop()
+            finally:
+                try:
+                    if tr.loop_worker is not None:
+                        loop_worker, tr.loop_worker = tr.loop_worker, None
+                        loop_worker.stop()
+                finally:
+                    tr._join_global_ba()
         stats = {**self.timers.summary(), **tr.timers.summary()}
         for name, s in stats.items():
             log.info("%-16s mean %.2f ms  p95 %.2f ms  (%d calls)", name, s["mean_ms"], s["p95_ms"], s["count"])

@@ -7,20 +7,25 @@ frame -> extract_orb -> [two-view init | fused three-stage track] ->
 keyframe policy -> (insert KF -> triangulate new landmarks -> fuse
 duplicates -> cull -> window BA -> cull keyframes)
 
-Ported: the monocular runtime without loop closing, in both of the
-reference's modes. `async_mapping=True` (the default) runs the mapping step
-on a background thread (`runtime/mapping_worker.py`) and resolves
-`pipeline_lag=2`: on an established, comfortably tracked map each frame is
-one chained dispatch of `fused_frame_program` whose result block is copied
-to the host asynchronously and retired `pipeline_lag` frames later.
+Ported: the monocular runtime with place recognition, in both of the
+reference's modes, at the reference's defaults (loop closing and global BA
+on). `async_mapping=True` (the default) runs the mapping step on a
+background thread (`runtime/mapping_worker.py`), the loop step on a second
+one (`LoopWorker`) and a global BA after a loop closure on a third, and
+resolves `pipeline_lag=2`: on an established, comfortably tracked map each
+frame is one chained dispatch of `fused_frame_program` whose result block is
+copied to the host asynchronously and retired `pipeline_lag` frames later.
 `async_mapping=False` with `pipeline_lag=0` is the frame-synchronous,
-bit-reproducible control. A frame the fused path declines is retried by the
-split-phase path (`_track_frame_slow`), and a failure there enters the
-OK -> RECENTLY_LOST -> LOST ladder. Stereo/RGB-D, inertial input and loop
-closing raise `NotImplementedError` at construction, naming the ROADMAP
-item. The keyframe database (relocalization, loop detection: A10) and the
-Atlas (A12) are left out: `Tracker.map` is one `MapState`, and a LOST
-tracker stays LOST and counts its frames.
+bit-reproducible control, with the loop step and the global BA inline. A
+frame the fused path declines is retried by the split-phase path
+(`_track_frame_slow`), and a failure there enters the
+OK -> RECENTLY_LOST -> LOST ladder, where frames are relocalized through the
+keyframe database (`_relocalize`). Corrections made on another thread reach
+the live frame through `MapState.big_change_idx` (`_rebase_after_map_change`).
+Stereo/RGB-D and inertial input raise `NotImplementedError` at construction,
+naming the ROADMAP item. The Atlas holds one map: where the reference spawns
+a new one after `reloc_patience` failed relocalizations (A12), the port
+stays LOST and counts the frame in `n_reloc_patience_exceeded`.
 
 The host side is numpy, as in the reference; device work runs on
 `Tracker.device` in f32 (window BA included), each stage fetches its
@@ -52,6 +57,7 @@ import numpy as np
 import torch
 
 from ..device import block_nbytes, fetch_block, fetch_block_async, get_device
+from ..models.atlas import Atlas
 from ..models.map_state import LEVEL_SIGMA2, MapConfig, MapState
 from ..ops import geometry, matching, orb, ransac
 from ..ops.camera import Camera, true_div, undistort_points
@@ -128,9 +134,8 @@ class Sensor(enum.Enum):
 @dataclasses.dataclass
 class TrackerConfig:
     """The reference's tracker configuration, with the fields the ported
-    slice reads (same names, same defaults). `sensor`, `imu` and
-    `enable_loop_closing` are kept so that a configuration outside the
-    slice is refused by name."""
+    slice reads (same names, same defaults). `sensor` and `imu` are kept so
+    that a configuration outside the slice is refused by name."""
 
     camera: Camera = None
     width: int = 752
@@ -175,6 +180,8 @@ class TrackerConfig:
     # map; equal to the strict floor by default (a transient RECENTLY_LOST
     # recovers cleanly, a map corrupted by weak frames does not).
     min_localmap_inliers_degraded: int = 30
+    # Relocalization acceptance (after the projection-search escalation).
+    reloc_min_inliers: int = 50
     kf_max_interval: int = 30
     kf_min_interval: int = 4
     # Temporally newest keyframes placed ahead of the covisibles in the
@@ -196,6 +203,12 @@ class TrackerConfig:
     ba_fixed_cap: int = 8
     ba_lm_cap: int = 4096
     ba_obs_cap: int = 24576
+    # Whole-map (global) BA after a loop closure: the sparse PCG-Schur
+    # solver; observations are padded to multiples of gba_obs_bucket.
+    enable_global_ba: bool = True
+    gba_obs_cap: int = 98304
+    gba_obs_bucket: int = 16384
+    gba_iters: int = 10
     map_cfg: MapConfig = dataclasses.field(default_factory=MapConfig)
 
 
@@ -664,10 +677,6 @@ class Tracker:
             raise NotImplementedError(f"sensor {cfg.sensor.name} is not ported yet (ROADMAP {item})")
         if cfg.imu is not None:
             raise NotImplementedError("inertial tracking is not ported yet (ROADMAP A13)")
-        if cfg.enable_loop_closing:
-            raise NotImplementedError(
-                "enable_loop_closing=True is not ported yet (ROADMAP A10); pass enable_loop_closing=False"
-            )
         self.cfg = cfg
         self.device = get_device(device)
         self.cam = cfg.camera
@@ -677,7 +686,7 @@ class Tracker:
         # Feature capacity follows the extractor budget.
         cfg.map_cfg.n_features = cfg.orb.n_features
         self.timers = StageTimers()
-        self.map = MapState(cfg.map_cfg)
+        self.atlas = Atlas(cfg.map_cfg)
         self.map_lock = threading.RLock()
         self.state = TrackState.NO_IMAGES_YET
         self.last: FrameData | None = None
@@ -687,9 +696,11 @@ class Tracker:
         self.last_kf_slot = -1  # temporal-chain tail (inertial only)
         self.last_kf_frame_id: int = -1
         self.frame_id: int = 0
-        # RANSAC hypotheses of the initializer are drawn from this generator.
+        # RANSAC hypotheses of the initializer and of relocalization are
+        # drawn from this generator.
         self.rng = torch.Generator().manual_seed(0)
         self.n_hyp = 256
+        self.n_hyp_pnp = 128
         # Trajectory bookkeeping: (frame_id, timestamp, map_id, ref_kf, R_cr, t_cr)
         self.trajectory: list[tuple] = []
         self._traj_anchor_ptr = 0
@@ -701,12 +712,19 @@ class Tracker:
         self.n_pipelined_frames = 0
         # Frames the fused path declined and handed to the split-phase path.
         self.n_fused_declined = 0
-        # Frames on which the reference would relocalize (RECENTLY_LOST
-        # without re-acquisition, LOST): relocalization is not ported.
+        # Frames without a pose after the loss ladder (RECENTLY_LOST without
+        # re-acquisition, LOST without relocalization).
         self.n_lost_frames = 0
+        # Consecutive failed relocalizations in LOST; past `reloc_patience`
+        # the reference spawns a new map (ROADMAP A12), the port stays LOST
+        # and counts the frame.
+        self.lost_frames = 0
+        self.reloc_patience = 12
+        self.n_reloc_patience_exceeded = 0
         self.n_lost_events = 0  # OK -> RECENTLY_LOST/LOST transitions
         self.n_frames_dropped = 0  # in-flight frames discarded on failure
         self.n_kf_skipped_backpressure = 0
+        self.localization_only = False  # System.activate_localization_mode
         self.lost_t = 0.0  # timestamp at which RECENTLY_LOST began
         # Per-frame cause tags for latency attribution (frame_id -> [tags]):
         # every event that can stall a frame records why.
@@ -726,12 +744,48 @@ class Tracker:
         # Per-KF scene median depth cache (triangulation baseline gate).
         self._kf_med_depth = np.zeros(cfg.map_cfg.max_keyframes, np.float32)
         self._kf_med_depth_ver = (-1, -1)
-        # Last, once everything its thread may touch exists.
+        # Place recognition: one keyframe database with a row per keyframe
+        # slot of the Atlas's one map (a second map is ROADMAP A12), and the
+        # loop closer sharing the device keyframe store and the map lock.
+        from .keyframe_database import KeyFrameDatabase
+        from .loop_closing import LoopCloser, LoopConfig
+
+        self.kfdb = KeyFrameDatabase(cfg.map_cfg.max_keyframes, self.device)
+        self.loop_closer = None
+        if cfg.enable_loop_closing:
+            self.loop_closer = LoopCloser(
+                self.atlas, self.kfdb, self.fx, self.fy, self.cx, self.cy, self.device, LoopConfig(),
+            )
+            self.loop_closer.global_ba_hook = self._global_ba_after_loop
+            self.loop_closer.lock = self.map_lock
+            self.loop_closer.kf_store = self._kf_store
+        # The big_change_idx this thread last rebased onto (corrections of
+        # other threads bump the map's).
+        self._seen_change_idx = 0
+        # Keyframe aliases across map merges (ROADMAP A12): empty here.
+        self._kf_alias: dict[tuple[int, int], tuple[int, int]] = {}
+        # Correction events (global BA applied or dropped; relocalizations).
+        self.events: list[dict] = []
+        self._gba_thread: threading.Thread | None = None
+        self._gba_error: BaseException | None = None
+        # Last, once everything its threads may touch exists.
         self.worker = None
+        self.loop_worker = None
         if cfg.async_mapping:
-            from .mapping_worker import MappingWorker
+            from .mapping_worker import LoopWorker, MappingWorker
 
             self.worker = MappingWorker(self)
+            if self.loop_closer is not None:
+                self.loop_worker = LoopWorker(self)
+
+    @property
+    def map(self) -> MapState:
+        return self.atlas.active
+
+    @map.setter
+    def map(self, m: MapState) -> None:
+        """Replace the active map (a state loaded through `convert`)."""
+        self.atlas.maps[self.atlas.active_idx] = m
 
     # ------------------------------------------------------------------
 
@@ -805,6 +859,9 @@ class Tracker:
             waited = (time.perf_counter() - t_w) * 1e3
             if waited > 2.0:
                 self.frame_causes[frame.frame_id].append(f"map_wait:{waited:.0f}ms" + ("" if done else "+"))
+        # A correction of another thread (loop closure, global BA) rebases
+        # the last frame before this one tracks.
+        self._rebase_after_map_change()
         if self.state == TrackState.OK and self._pipeline_active():
             T = self._track_frame_pipelined(frame)
             self.frame_id += 1
@@ -815,13 +872,15 @@ class Tracker:
         elif self.state == TrackState.RECENTLY_LOST:
             self._recently_lost_step(frame)
         elif self.state == TrackState.LOST:
-            # The reference relocalizes here (and spawns a new map when that
-            # keeps failing); neither is ported (ROADMAP A10, A12): a LOST
-            # tracker stays LOST and counts the frame.
-            self.n_lost_frames += 1
-            frame.R = None
-            frame.t = None
-            self.last = frame
+            if self._relocalize(frame):
+                self.lost_frames = 0
+            else:
+                self.n_lost_frames += 1
+                self.lost_frames += 1
+                if self.lost_frames > self.reloc_patience:
+                    # The reference spawns a new map here (ROADMAP A12).
+                    self.n_reloc_patience_exceeded += 1
+                    self.lost_frames = 0
         else:
             self._track_frame(frame)
         self.frame_id += 1
@@ -909,6 +968,8 @@ class Tracker:
         )
         m.update_landmark_stats(lm_ids)
         frame.lm_idx = cur_lm
+        self.kfdb.add(k1, ref.desc_i8, ref.valid)
+        self.kfdb.add(k2, frame.desc_i8, frame.valid)
         # Initial BA over both KFs (GlobalBundleAdjustemnt(20) at init).
         self._local_ba([k1, k2], fix=[k1])
         self.ref_kf = k2
@@ -1362,12 +1423,54 @@ class Tracker:
         self._chain = None
 
     def flush_mapping(self):
-        """Drain the tracking pipeline and the background mapping stage
-        (re-raising a failure of the mapping thread). Call before reading a
-        consistent whole-map state."""
+        """Drain the tracking pipeline, the background mapping stage, the
+        loop-closing stage and any global BA in flight, re-raising a failure
+        of any of their threads. Call before reading a consistent whole-map
+        state."""
         self._drain_pipeline()
         if self.worker is not None:
             self.worker.flush()
+        if self.loop_worker is not None:
+            self.loop_worker.flush()
+        self._join_global_ba()
+
+    def _join_global_ba(self):
+        """Wait for the background global BA and re-raise its failure."""
+        t = self._gba_thread
+        if t is not None:
+            t.join()
+        self._gba_thread = None
+        if self._gba_error is not None:
+            err, self._gba_error = self._gba_error, None
+            raise err
+
+    def _rebase_after_map_change(self):
+        """If a correction of another thread (loop closure, global BA) moved
+        the map since this thread last looked, drop the frames in flight
+        (they were tracked against the pre-correction map) and re-derive the
+        last frame's pose from its reference keyframe's corrected pose through
+        its stored relative pose (the map-change rebase of Tracking::Track)."""
+        m = self.map
+        if m.big_change_idx == self._seen_change_idx:
+            return
+        self.frame_causes[self.frame_id].append(f"map_correction_rebase:drop{len(self._pipe)}")
+        self._drop_in_flight()
+        self._seen_change_idx = m.big_change_idx
+        self.velocity = None
+        if self.last is None or self.last.R is None or not self.trajectory:
+            return
+        fid, ts, map_id, kref, R_cr, t_cr = self.trajectory[-1]
+        while (map_id, kref) in self._kf_alias:
+            map_id, kref = self._kf_alias[(map_id, kref)]
+        with self.map_lock:
+            if fid == self.last.frame_id and map_id == m.map_id and m.kf_valid[kref]:
+                self.last.R = (R_cr @ m.kf_R[kref]).astype(np.float32)
+                self.last.t = (R_cr @ m.kf_t[kref] + t_cr).astype(np.float32)
+            elif self.ref_kf >= 0 and m.kf_valid[self.ref_kf]:
+                # No record of the last frame: re-anchor at the reference
+                # keyframe; the next frame's wide re-acquisition absorbs it.
+                self.last.R = m.kf_R[self.ref_kf].copy()
+                self.last.t = m.kf_t[self.ref_kf].copy()
 
     # ------------------------------------------------------------------
     # Split-phase tracking and the loss ladder
@@ -1508,6 +1611,14 @@ class Tracker:
         frame: the dominant loss mode under a lagging mapping stage is
         transient frontier starvation, and the last healthy velocity
         extrapolates the true view for tens of frames."""
+        if self.map.big_change_idx != self._seen_change_idx and self.last is not None and self.last.R is not None:
+            # A correction of another thread moved the map while this frame
+            # tracked against it: drop the frame and let the next one rebase
+            # instead of declaring a loss.
+            log.info("track miss during a background map correction at frame %d; rebasing", frame.frame_id)
+            frame.R = None
+            frame.t = None
+            return
         n_kf = self.map.n_keyframes()
         frame.lm_idx[:] = -1
         self.n_lost_events += 1
@@ -1526,11 +1637,10 @@ class Tracker:
     def _recently_lost_step(self, frame: FrameData):
         """One frame while RECENTLY_LOST: predict the pose (constant
         velocity) and try to RE-ACQUIRE the local map around the reference
-        keyframe with a wide search window. Where that fails the reference
-        falls back to full relocalization; relocalization is not ported
-        (ROADMAP A10), so such a frame is counted in `n_lost_frames` and the
-        kept pose carries the prediction to the next frame. Falls to LOST
-        after `time_recently_lost` seconds; LOST stays LOST."""
+        keyframe with a wide search window, then fall back to full
+        relocalization. A frame recovered by neither is counted in
+        `n_lost_frames` and its kept pose carries the prediction to the next
+        frame. Falls to LOST after `time_recently_lost` seconds."""
         m = self.map
         recovered = False
         if self.last is not None and self.last.R is not None:
@@ -1552,16 +1662,23 @@ class Tracker:
                         log.info("re-acquired tracking at frame %d (%d inliers)", frame.frame_id, n_in)
                         recovered = True
             if not recovered:
+                # Full relocalization clears the frame's pose on failure; the
+                # kept pose is what the next re-acquisition predicts from.
+                R_keep, t_keep = frame.R, frame.t
+                recovered = self._relocalize(frame)
+                if not recovered:
+                    frame.R, frame.t = R_keep, t_keep
+            if not recovered:
                 self.n_lost_frames += 1
                 self.last = frame
         else:
-            self.n_lost_frames += 1
-            frame.R = None
-            frame.t = None
-            self.last = frame
+            recovered = self._relocalize(frame)
+            if not recovered:
+                self.n_lost_frames += 1
         if recovered:
             self.state = TrackState.OK
             self.velocity = None
+            self.lost_frames = 0
             self.last = frame
         elif frame.timestamp - self.lost_t > self.cfg.time_recently_lost:
             log.warning(
@@ -1570,6 +1687,7 @@ class Tracker:
             )
             self.state = TrackState.LOST
             self.velocity = None
+            self.lost_frames = 0
 
     def _finish_tracked_frame(self, frame: FrameData, n_in: int):
         """Post-track bookkeeping: motion model update, keyframe policy,
@@ -1607,7 +1725,7 @@ class Tracker:
             if not starving:
                 self.n_kf_skipped_backpressure += 1
                 need = False
-        if need:
+        if need and not self.localization_only:
             with self.timers.span("new_kf"):
                 self._insert_keyframe(frame)
         self.last = frame
@@ -1615,6 +1733,114 @@ class Tracker:
     def _kf_bits(self, k: int) -> np.ndarray:
         """Unpack a keyframe's stored packed descriptors to int8 bits."""
         return np.unpackbits(self.map.kf_desc[k].view(np.uint8), axis=-1, bitorder="little").astype(np.int8)
+
+    def _kf_bits_dev(self, k: int) -> torch.Tensor:
+        """A keyframe's unpacked descriptors from the device keyframe store
+        (a lost stretch retries the same candidates every frame)."""
+        with self.map_lock:
+            self._kf_store.sync(self.map, [int(k)])
+        return _unpack_desc(self._kf_store.desc[int(k)])
+
+    def _relocalize(self, frame: FrameData) -> bool:
+        """Relocalization (Tracking::Relocalization): candidates from the
+        keyframe database by place signature with covisible-group
+        accumulation, then the most recent keyframes; per candidate,
+        descriptor matching to its bound features -> MLPnP RANSAC -> pose
+        optimization -> projection-search escalation, accepted at
+        `reloc_min_inliers`."""
+        m = self.map
+        cand = np.nonzero(m.kf_valid)[0]
+        if len(cand) == 0:
+            self.last = frame
+            return False
+        hist = self.kfdb.histogram(frame.desc_i8, frame.valid)
+        db_cand = []
+        if hist is not None:
+
+            def covis(c):
+                if not m.kf_valid[c]:
+                    return []
+                return m.covisible_keyframes(int(c), min_weight=1, top=10)[0].tolist()
+
+            db_cand = [int(c) for c in self.kfdb.query_groups(hist, covis, n_best=8, min_score=0.02)[0]]
+        # Candidates from the database, then the most recent keyframes.
+        recency = cand[np.argsort(-m.kf_frame_id[cand], kind="stable")][:5]
+        cand = list(dict.fromkeys(db_cand + recency.tolist()))
+        cand = np.asarray([c for c in cand if m.kf_valid[c]])[:8]
+        # Dispatch every candidate's descriptor match, fetch them together.
+        _, _, f_bits, f_valid, f_angle = self._dev_feats(frame)
+        pending = []
+        for k in cand:
+            ref_lm = m.kf_lm_idx[k]
+            pending.append(match_bow_like(
+                self._kf_bits_dev(k), self._put(m.kf_feat_valid[k] & (ref_lm >= 0)), self._put(m.kf_angle[k]),
+                f_bits, f_valid, f_angle,
+            ))
+        fetched = fetch_block([x for pair in pending for x in pair]) if pending else []
+        scored = []
+        for j, k in enumerate(cand):
+            ref_lm = m.kf_lm_idx[k]
+            idx_np, ok_np = fetched[2 * j], fetched[2 * j + 1]
+            sel = np.nonzero(ok_np & (ref_lm >= 0) & m.lm_valid[np.maximum(ref_lm, 0)])[0]
+            scored.append((len(sel), int(k), ref_lm, idx_np, sel))
+        # The best few by match count (stable: ties keep candidate order).
+        scored.sort(key=lambda x: -x[0])
+        for n_match, k, ref_lm, idx_np, sel in scored[:3]:
+            if n_match < 15:
+                continue
+            cap = self.cfg.local_lm_cap
+            n = min(len(sel), cap)
+            sel = sel[:n]
+            pad = cap - n
+            Xw = np.concatenate([m.lm_pos[ref_lm[sel]], np.zeros((pad, 3), np.float32)])
+            uv = np.concatenate([frame.xy[idx_np[sel]], np.zeros((pad, 2), np.float32)]).astype(np.float32)
+            valid = np.concatenate([np.ones(n, bool), np.zeros(pad, bool)])
+            # Per-octave inlier gate (mvMaxError = mvSigma2 * th2).
+            sig2 = np.concatenate([self._feat_sigma2(frame.level[idx_np[sel]]), np.ones(pad, np.float32)])
+            valid_d = self._put(valid)
+            R, t, inl, _, ok_pnp = fetch_block(ransac.mlpnp_ransac(
+                self._put(Xw), self._put(uv), valid_d, self._K_dev,
+                ransac.sample_indices(self.rng, self.n_hyp_pnp, 6, valid_d), sigma2=self._put(sig2),
+            ))
+            if not bool(ok_pnp):
+                continue
+            frame.R, frame.t = R, t
+            inl_np = inl[:n]
+            frame.lm_idx[:] = -1
+            frame.lm_idx[idx_np[sel[inl_np]]] = ref_lm[sel[inl_np]]
+            n_in = self._pose_optimize(frame)
+            if n_in < 10:
+                continue
+            # Escalation: add matches by projecting the candidate's landmarks
+            # through the current estimate, a coarse pass (window 10) and if
+            # still marginal a narrow one (window 3).
+            th = self.cfg.reloc_min_inliers
+            if n_in < th:
+                lms_k = ref_lm[ref_lm >= 0]
+                lms_k = np.unique(lms_k[m.lm_valid[lms_k]])
+                lm_hit, feat_hit = self._match_landmarks_into_frame(frame, lms_k, 10.0)
+                if len(lm_hit) and int((frame.lm_idx >= 0).sum()) + len(lm_hit) >= th:
+                    frame.lm_idx[feat_hit] = lm_hit
+                    n_in = self._pose_optimize(frame)
+                    if 30 <= n_in < th:
+                        lm_hit, feat_hit = self._match_landmarks_into_frame(frame, lms_k, 3.0)
+                        if len(lm_hit):
+                            frame.lm_idx[feat_hit] = lm_hit
+                            n_in = self._pose_optimize(frame)
+            if n_in >= th:
+                source = "database" if k in db_cand else "recency"
+                log.info("relocalized at frame %d against KF %d (%s, %d inliers)", frame.frame_id, k, source, n_in)
+                self.events.append({"kind": "reloc", "frame": int(frame.frame_id), "kf": k, "source": source,
+                                    "n_inliers": int(n_in)})
+                self.state = TrackState.OK
+                self.velocity = None
+                self.ref_kf = k
+                self.last = frame
+                return True
+        frame.R = None
+        frame.t = None
+        self.last = frame
+        return False
 
     def _local_keyframes(self, frame: FrameData) -> np.ndarray:
         """K1 = KFs sharing landmarks with the frame, ranked by overlap;
@@ -1649,6 +1875,12 @@ class Tracker:
                 self.n_kf_skipped_backpressure += 1
                 return
             self.map_lock.release()
+            if m.big_change_idx != self._seen_change_idx:
+                # The map was corrected after this frame was tracked: its pose
+                # is in the pre-correction frame. Skip; the next frame rebases
+                # and decides again.
+                self.n_kf_skipped_backpressure += 1
+                return
         with self.map_lock:
             try:
                 k = m.add_keyframe(
@@ -1677,15 +1909,15 @@ class Tracker:
                 self.frame_causes[frame.frame_id].append("young_map_drain")
                 self.worker.flush()
         else:
-            self._mapping_step(k, map_ref=m)
+            self._mapping_step(k, map_ref=m, frame=frame)
 
-    def _mapping_step_batch(self, ks: list[int], map_ref: MapState):
+    def _mapping_step_batch(self, ks: list[int], map_ref: MapState, frame: FrameData | None = None):
         """Catch-up processing of a drained keyframe queue: older keyframes
-        are registered (landmark statistics) and the newest gets the full
-        mapping step; its triangulation pair set always includes the most
-        recent keyframes, so the skipped keyframes' fresh features still
-        seed the map frontier. (The reference also hands each registered
-        keyframe to loop detection: ROADMAP A10.)"""
+        are registered (landmark statistics, and the full loop step: the
+        reference's loop thread detects on every queued keyframe) and the
+        newest gets the full mapping step; its triangulation pair set always
+        includes the most recent keyframes, so the skipped keyframes' fresh
+        features still seed the map frontier."""
         m = map_ref
         live = [k for k in ks if m is self.map and m.kf_valid[k]]
         if not live:
@@ -1693,10 +1925,11 @@ class Tracker:
         for k in live[:-1]:
             seen = m.kf_lm_idx[k][m.kf_lm_idx[k] >= 0]
             m.update_landmark_stats(np.unique(seen))
+            self._hand_to_loop(k, m)
         log.info("mapping catch-up: registered %d queued KFs, full step on %d", len(live) - 1, live[-1])
-        self._mapping_step(live[-1], map_ref=m)
+        self._mapping_step(live[-1], map_ref=m, frame=frame)
 
-    def _mapping_step(self, k: int, map_ref: MapState):
+    def _mapping_step(self, k: int, map_ref: MapState, frame: FrameData | None = None):
         """The LocalMapping work for one keyframe (LocalMapping::Run loop
         body): triangulate, fuse, cull landmarks, window BA, cull
         keyframes. Runs on the caller's thread or on the MappingWorker."""
@@ -1772,9 +2005,40 @@ class Tracker:
             if ba_ctx is not None:
                 with self.timers.span("map_local_ba"):
                     self._local_ba_apply(ba_ctx)
+        # Place recognition hand-off (LoopClosing::InsertKeyFrame).
+        self._hand_to_loop(k, m, frame)
         log.info(
             "KF %d mapped: %d new lms, map: %d KFs / %d lms", k, len(new_ids), m.n_keyframes(), m.n_landmarks(),
         )
+
+    def _hand_to_loop(self, k: int, m: MapState, frame: FrameData | None = None):
+        """The loop step of keyframe k: on the LoopWorker thread when there
+        is one, else inline."""
+        if self.loop_worker is not None:
+            self.loop_worker.submit(k, m)
+        else:
+            self._loop_step(k, m, frame=frame)
+
+    def _loop_step(self, k: int, map_ref: MapState, frame: FrameData | None = None):
+        """One LoopClosing iteration for keyframe k: detection, validation,
+        correction, database registration. On the LoopWorker thread
+        (frame=None) the live frame learns of a correction through
+        big_change_idx and `_rebase_after_map_change`; inline, a correction
+        re-anchors `frame` on its own corrected keyframe here."""
+        m = map_ref
+        if m is not self.map or not m.kf_valid[k]:
+            return
+        if self.loop_closer is None:
+            self.kfdb.add(k, self._kf_bits(k), m.kf_feat_valid[k])
+            return
+        big0 = m.big_change_idx
+        with self.timers.span("map_loop"):
+            self.loop_closer.process_keyframe(k)
+        if m.big_change_idx != big0 and frame is not None:
+            frame.R = m.kf_R[k].copy()
+            frame.t = m.kf_t[k].copy()
+            self.velocity = None
+            self._seen_change_idx = m.big_change_idx
 
     def _scene_median_depth(self, k: int) -> float:
         """Median depth of a keyframe's bound landmarks in its own frame
@@ -2078,6 +2342,7 @@ class Tracker:
                         (R_cr @ R_rp).astype(np.float32),
                         (R_cr @ t_rp + t_cr).astype(np.float32),
                     )
+        self.kfdb.erase(kf)
         self._kf_med_depth[kf] = 0.0  # slot may be reused
         m.remove_keyframe(kf)
 
@@ -2217,6 +2482,167 @@ class Tracker:
             m.lm_pos[lms[okl]] = X_new[okl]
 
     # ------------------------------------------------------------------
+    # Global BA (whole map)
+    # ------------------------------------------------------------------
+
+    def _global_ba(self, fix: list[int] | None = None, iters: int | None = None):
+        """Whole-map visual BA (Optimizer::GlobalBundleAdjustemnt) with the
+        sparse PCG-Schur solver, on the calling thread."""
+        snap = self._gba_gather(fix)
+        if snap is None:
+            return
+        self._gba_apply(snap, *self._gba_solve(snap, iters))
+
+    def _gba_gather(self, fix: list[int] | None = None):
+        """Snapshot the whole-map BA problem under the map lock. Keyframe and
+        landmark slots map 1:1 to problem slots, so only the observation
+        table is gathered; slot generations let a background solve detect
+        slots culled and reused while it computed."""
+        m = self.map
+        cfg = self.cfg
+        with self.map_lock:
+            if m.n_keyframes() < 3 or m.n_landmarks() < 32:
+                return None
+            kf_fixed = ~m.kf_valid.copy()
+            if fix:
+                kf_fixed[list(fix)] = True
+            else:
+                # Gauge: the map-origin keyframe.
+                valid_ids = np.nonzero(m.kf_valid)[0]
+                kf_fixed[int(valid_ids[np.argmin(m.kf_frame_id[valid_ids])])] = True
+            ks, fs = np.nonzero(m.kf_valid[:, None] & m.kf_feat_valid & (m.kf_lm_idx >= 0))
+            o_lm = m.kf_lm_idx[ks, fs]
+            keep = m.lm_valid[o_lm]
+            ks, fs, o_lm = ks[keep], fs[keep], o_lm[keep]
+            if len(ks) < 64:
+                return None
+            if len(ks) > cfg.gba_obs_cap:
+                log.warning("global BA: subsampling %d observations to cap %d", len(ks), cfg.gba_obs_cap)
+                keep = informed_obs_drop(o_lm, cfg.gba_obs_cap, np.random.default_rng(0))
+                ks, fs, o_lm = ks[keep], fs[keep], o_lm[keep]
+            return dict(
+                map=m, kf_R=m.kf_R.copy(), kf_t=m.kf_t.copy(), kf_valid=m.kf_valid.copy(), kf_fixed=kf_fixed,
+                kf_gen=m.kf_gen.copy(), Xw=m.lm_pos.copy(), lm_valid=m.lm_valid.copy(), lm_gen=m.lm_gen.copy(),
+                ks=ks, o_lm=o_lm, n_obs=len(ks),
+                o_uv=(m.kf_xy[ks, fs] - [self.cx, self.cy]).astype(np.float32),
+                o_sig=self._feat_sigma2(m.kf_level[ks, fs]),
+                o_ur=(m.kf_ur[ks, fs] - self.cx).astype(np.float32),
+                o_st=m.kf_ur[ks, fs] >= 0,
+            )
+
+    def _gba_solve(self, snap: dict, iters: int | None = None):
+        """Solve the snapshotted problem on the tracker's device (the
+        observation count padded to a multiple of gba_obs_bucket); returns
+        host (R, t, Xw) of every slot."""
+        from ..optim.local_ba import BAProblem
+        from ..optim.sparse_ba import sparse_ba
+
+        cfg = self.cfg
+        iters = cfg.gba_iters if iters is None else iters
+        n_obs = snap["n_obs"]
+        pad_o = min(-(-n_obs // cfg.gba_obs_bucket) * cfg.gba_obs_bucket, cfg.gba_obs_cap) - n_obs
+
+        def pado(x, fill=0):
+            return np.concatenate([x, np.full((pad_o, *x.shape[1:]), fill, x.dtype)])
+
+        put = self._put
+        prob = BAProblem(
+            R=put(snap["kf_R"]), t=put(snap["kf_t"]),
+            kf_valid=put(snap["kf_valid"]), kf_fixed=put(snap["kf_fixed"]),
+            Xw=put(snap["Xw"]), lm_valid=put(snap["lm_valid"]),
+            obs_kf=put(pado(snap["ks"]), np.int64), obs_lm=put(pado(snap["o_lm"]), np.int64),
+            obs_uvr=put(pado(np.concatenate([snap["o_uv"], snap["o_ur"][:, None]], 1))),
+            obs_sigma2=put(pado(snap["o_sig"].astype(np.float32), 1.0)),
+            obs_stereo=put(pado(snap["o_st"])),
+            obs_valid=put(np.concatenate([np.ones(n_obs, bool), np.zeros(pad_o, bool)])),
+            fx=self.fx, fy=self.fy, bf=float(cfg.bf),
+        )
+        res = sparse_ba(prob, iters=iters, gate_at=max(2, iters // 2))
+        R_new, t_new, X_new, cost = fetch_block((res.R, res.t, res.Xw, res.cost))
+        log.info("global BA solved: %d obs, cost %.1f", n_obs, float(cost))
+        return R_new, t_new, X_new
+
+    def _gba_apply(self, snap: dict, R_new, t_new, X_new):
+        """Write the result back under the map lock, propagating corrections
+        to keyframes and landmarks created while the solve ran (the post-GBA
+        spanning-tree patch of RunGlobalBundleAdjustment): a new keyframe
+        rides its strongest snapshot covisible, a new landmark its first
+        observing keyframe."""
+        m = snap["map"]
+        with self.map_lock:
+            if m not in self.atlas.maps:
+                self.events.append({"kind": "gba_drop", "why": "map_gone"})
+                return
+            in_snap = m.kf_valid & snap["kf_valid"] & (m.kf_gen == snap["kf_gen"])
+            in_snap_l = m.lm_valid & snap["lm_valid"] & (m.lm_gen == snap["lm_gen"])
+            new_k = np.nonzero(m.kf_valid & ~in_snap)[0]
+            new_l = np.nonzero(m.lm_valid & ~in_snap_l)[0]
+            # Old (pre-correction) poses of every live anchor candidate.
+            R_old_all = m.kf_R.copy()
+            t_old_all = m.kf_t.copy()
+            R_old_all[in_snap] = snap["kf_R"][in_snap]
+            t_old_all[in_snap] = snap["kf_t"][in_snap]
+            m.kf_R[in_snap] = R_new[in_snap]
+            m.kf_t[in_snap] = t_new[in_snap]
+            m.lm_pos[in_snap_l] = X_new[in_snap_l]
+            snap_slots = np.nonzero(in_snap)[0]
+            if len(new_k) and len(snap_slots):
+                counts = m.obs[snap_slots].astype(np.int32) @ m.obs[new_k].astype(np.int32).T  # (S, N)
+                a_for = snap_slots[np.argmax(counts, axis=0)]
+                has = counts.max(axis=0) > 0
+                for j, a, h in zip(new_k, a_for, has):
+                    if not h:
+                        continue
+                    R_rel = m.kf_R[j] @ snap["kf_R"][a].T
+                    t_rel = m.kf_t[j] - R_rel @ snap["kf_t"][a]
+                    m.kf_R[j] = (R_rel @ R_new[a]).astype(np.float32)
+                    m.kf_t[j] = (R_rel @ t_new[a] + t_rel).astype(np.float32)
+            if len(new_l):
+                anchors = m.lm_first_kf[new_l]
+                ok_a = (anchors >= 0) & m.kf_valid[np.maximum(anchors, 0)]
+                for a in np.unique(anchors[ok_a]):
+                    lsel = new_l[(anchors == a) & ok_a]
+                    xc = m.lm_pos[lsel] @ R_old_all[a].T + t_old_all[a]
+                    m.lm_pos[lsel] = ((xc - m.kf_t[a]) @ m.kf_R[a]).astype(np.float32)
+            self.events.append({
+                "kind": "gba_apply", "n_kf": int(in_snap.sum()), "n_new_kf": len(new_k), "n_new_lm": len(new_l),
+            })
+            # Inside the lock: results of other threads in flight are guarded
+            # by big_change_idx, so the bump must be visible before anyone
+            # can read the corrected poses.
+            m.big_change_idx += 1
+
+    def _global_ba_after_loop(self, k: int, c: int):
+        """LoopCloser hook (RunGlobalBundleAdjustment): a whole-map BA with
+        the loop candidate fixed. Inline without a mapping worker; else on its
+        own thread against a snapshot, so that the mapping queue keeps
+        draining. A failure of that thread is re-raised at the next
+        `flush_mapping` (and so at shutdown)."""
+        if not self.cfg.enable_global_ba:
+            return
+        if self.worker is None:
+            with self.timers.span("global_ba"):
+                self._global_ba(fix=[c])
+            return
+        if self._gba_thread is not None and self._gba_thread.is_alive():
+            log.warning("global BA already running; skipping new request")
+            return
+        snap = self._gba_gather(fix=[c])
+        if snap is None:
+            return
+
+        def run():
+            try:
+                with self.timers.span("global_ba"):
+                    self._gba_apply(snap, *self._gba_solve(snap))
+            except BaseException as e:  # noqa: BLE001 - re-raised at the next flush
+                log.exception("background global BA failed")
+                self._gba_error = e
+
+        self._gba_thread = threading.Thread(target=run, name="global_ba", daemon=True)
+        self._gba_thread.start()
+
+    # ------------------------------------------------------------------
     # Trajectory
     # ------------------------------------------------------------------
 
@@ -2249,6 +2675,10 @@ class Tracker:
         the exported trajectory (mlRelativeFramePoses)."""
         k = self.ref_kf
         with self.map_lock:
+            if self.map.big_change_idx != self._seen_change_idx:
+                # A correction landed after this frame was tracked: its pose
+                # is pre-correction. Skip; the next frame rebases.
+                return
             Rr, tr = self.map.kf_R[k].copy(), self.map.kf_t[k].copy()
         # Tcr = Tcw * Trw^-1
         R_cr = frame.R @ Rr.T

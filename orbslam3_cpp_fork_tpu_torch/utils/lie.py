@@ -1,11 +1,11 @@
-"""SO(3)/SE(3) helpers for the tracking path (port of utils/lie.py).
+"""Lie groups SO(3), SE(3) and Sim(3) (port of utils/lie.py).
 
 Rotations are (...,3,3) matrices and SE(3) poses are (R, t) acting as
-x -> R @ x + t (Tcw maps world to camera). Every function broadcasts over
-leading batch dimensions and selects small-angle Taylor branches with
-`torch.where` on safe operands, as the reference does. The rest of the
-reference module (so3_log, Sim(3), right-Jacobian inverse) waits for the
-slices that need it: neither tracking nor local mapping reaches it.
+x -> R @ x + t (Tcw maps world to camera); Sim(3) elements are (s, R, t)
+acting as x -> s R x + t (loop closing, the essential graph). Every function
+broadcasts over leading batch dimensions and selects small-angle Taylor
+branches with `torch.where` on safe operands, as the reference does, so that
+forward-mode derivatives (`torch.func.jvp` / `jacfwd`) stay finite.
 """
 
 from __future__ import annotations
@@ -27,6 +27,11 @@ def hat(w: torch.Tensor) -> torch.Tensor:
         ],
         dim=-2,
     )
+
+
+def vee(W: torch.Tensor) -> torch.Tensor:
+    """Inverse of hat: (...,3,3) -> (...,3)."""
+    return torch.stack([W[..., 2, 1], W[..., 0, 2], W[..., 1, 0]], dim=-1)
 
 
 def _theta(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -64,6 +69,38 @@ def so3_right_jacobian(w: torch.Tensor) -> torch.Tensor:
         small, 1.0 / 6.0 - theta2 / 120.0, (safe - torch.sin(safe)) / safe**3
     )
     return _eye_like(W) - b[..., None, None] * W + c[..., None, None] * WW
+
+
+def so3_right_jacobian_inv(w: torch.Tensor) -> torch.Tensor:
+    """Jr(w)^-1."""
+    theta, safe = _theta(w)
+    theta2 = torch.sum(w * w, dim=-1)
+    W = hat(w)
+    WW = W @ W
+    small = theta < 1e-4
+    # 1/theta^2 - (1+cos)/(2 theta sin)
+    sin_safe = torch.sin(torch.where(torch.abs(torch.sin(safe)) < _EPS, torch.ones_like(safe), safe))
+    cot_term = torch.where(
+        small,
+        1.0 / 12.0 + theta2 / 720.0,
+        1.0 / safe**2 - (1.0 + torch.cos(safe)) / (2.0 * safe * sin_safe),
+    )
+    return _eye_like(W) + 0.5 * W + cot_term[..., None, None] * WW
+
+
+def so3_log(R: torch.Tensor) -> torch.Tensor:
+    """Matrix log: (...,3,3) rotation -> (...,3) tangent, |w| in [0, pi],
+    through the quaternion (well conditioned at every angle)."""
+    q = rot_to_quat(R)
+    xyz = q[..., :3]
+    w = q[..., 3]  # >= 0 by construction
+    n = torch.linalg.vector_norm(xyz, dim=-1)
+    theta = 2.0 * torch.atan2(n, w)
+    small = n < 1e-6
+    n_safe = torch.where(small, torch.ones_like(n), n)
+    # theta/n -> 2/w for n -> 0 (w -> 1).
+    scale = torch.where(small, 2.0 / torch.clamp_min(w, 0.5), theta / n_safe)
+    return xyz * scale[..., None]
 
 
 def so3_left_jacobian(w: torch.Tensor) -> torch.Tensor:
@@ -141,6 +178,13 @@ def se3_exp(xi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return R, t
 
 
+def se3_log(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """(R, t) -> xi = (rho, phi) (...,6), the inverse of se3_exp."""
+    phi = so3_log(R)
+    rho = torch.einsum("...ij,...j->...i", so3_right_jacobian_inv(-phi), t)
+    return torch.cat([rho, phi], dim=-1)
+
+
 def se3_mul(Ra, ta, Rb, tb):
     """(Ra,ta) * (Rb,tb)."""
     return Ra @ Rb, torch.einsum("...ij,...j->...i", Ra, tb) + ta
@@ -155,3 +199,73 @@ def se3_inv(R, t):
 def se3_apply(R, t, x):
     """Transform points x (...,3)."""
     return torch.einsum("...ij,...j->...i", R, x) + t
+
+
+# ----------------------------------------------------------------------------
+# Sim(3): (s: (...,), R: (...,3,3), t: (...,3)); x -> s R x + t.
+# ----------------------------------------------------------------------------
+
+
+def sim3_identity(batch_shape=(), dtype=torch.float32, device=None):
+    R = torch.eye(3, dtype=dtype, device=device).expand(*batch_shape, 3, 3).clone()
+    t = torch.zeros((*batch_shape, 3), dtype=dtype, device=device)
+    return torch.ones(batch_shape, dtype=dtype, device=device), R, t
+
+
+def sim3_mul(sa, Ra, ta, sb, Rb, tb):
+    return sa * sb, Ra @ Rb, sa[..., None] * torch.einsum("...ij,...j->...i", Ra, tb) + ta
+
+
+def sim3_inv(s, R, t):
+    Rt = R.transpose(-1, -2)
+    s_inv = 1.0 / s
+    return s_inv, Rt, -s_inv[..., None] * torch.einsum("...ij,...j->...i", Rt, t)
+
+
+def sim3_apply(s, R, t, x):
+    return s[..., None] * torch.einsum("...ij,...j->...i", R, x) + t
+
+
+def _sim3_V(phi: torch.Tensor, sigma: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """V of the Sim(3) exponential (t = V rho), the closed form of
+    Strasdat's thesis with the reference's small-angle and small-scale
+    branches."""
+    theta, safe_t = _theta(phi)
+    W = hat(phi)
+    WW = W @ W
+    eps = 1e-5
+    small_s = torch.abs(sigma) < eps
+    small_t = theta < eps
+    safe_s = torch.where(small_s, torch.ones_like(sigma), sigma)
+    c0 = torch.where(small_s, 1.0 + sigma / 2.0 + sigma**2 / 6.0, (s - 1.0) / safe_s)
+    denom = safe_s**2 + safe_t**2
+    a_ = s * torch.sin(safe_t)
+    b_ = s * torch.cos(safe_t)
+    c1_gen = (a_ * safe_s + (1.0 - b_) * safe_t) / (safe_t * denom)
+    c2_gen = (c0 - ((b_ - 1.0) * safe_s + a_ * safe_t) / denom) / (safe_t**2)
+    c1_s0 = (1.0 - torch.cos(safe_t)) / safe_t**2
+    c2_s0 = (safe_t - torch.sin(safe_t)) / safe_t**3
+    c1_t0 = torch.where(small_s, 0.5 + sigma / 3.0, ((safe_s - 1.0) * s + 1.0) / safe_s**2)
+    c2_t0 = torch.where(
+        small_s, 1.0 / 6.0 + sigma / 8.0, (s * (0.5 * safe_s**2 - safe_s + 1.0) - 1.0) / safe_s**3,
+    )
+    C1 = torch.where(small_t, c1_t0, torch.where(small_s, c1_s0, c1_gen))
+    C2 = torch.where(small_t, c2_t0, torch.where(small_s, c2_s0, c2_gen))
+    return c0[..., None, None] * _eye_like(W) + C1[..., None, None] * W + C2[..., None, None] * WW
+
+
+def sim3_exp(xi: torch.Tensor):
+    """xi = (rho, phi, sigma) (...,7) -> (s, R, t)."""
+    rho, phi, sigma = xi[..., :3], xi[..., 3:6], xi[..., 6]
+    s = torch.exp(sigma)
+    R = so3_exp(phi)
+    t = torch.einsum("...ij,...j->...i", _sim3_V(phi, sigma, s), rho)
+    return s, R, t
+
+
+def sim3_log(s: torch.Tensor, R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """Inverse of sim3_exp: solves V rho = t."""
+    sigma = torch.log(s)
+    phi = so3_log(R)
+    rho = torch.linalg.solve(_sim3_V(phi, sigma, s), t[..., None])[..., 0]
+    return torch.cat([rho, phi, sigma[..., None]], dim=-1)

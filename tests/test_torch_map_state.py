@@ -147,3 +147,83 @@ def test_device_keyframe_store_mirrors_the_map():
     assert k2 == k and store.gen[k] != m.kf_gen[k]
     store.sync(m, [k])
     assert float(store.xy[k].min()) == 7.0 and store.desc.dtype == torch.int64
+
+
+def test_covisibility_under_three_threads():
+    """The track thread inserts keyframes, the loop thread fuses landmarks and
+    binds observations (both under the map lock), and a third thread reads
+    covisibility without it, which rebuilds the native mirror after each
+    fusion. Every round, the mirror's rows must equal `obs @ obs[k]`: a
+    rebuild racing a locked write must not publish a graph without it."""
+    import threading
+
+    assert native.backend() == "native", "g++ is present here: the native graph must build"
+    rng = np.random.default_rng(5)
+    m = tms.MapState(tms.MapConfig(max_keyframes=32, max_landmarks=512, n_features=N_F, imu_cap=4))
+    n_lm = 400
+    desc = rng.integers(0, 2**32, (n_lm, 8), dtype=np.uint64).astype(np.uint32)
+    bits = np.unpackbits(desc.view(np.uint8), axis=-1, bitorder="little").astype(np.int8)
+    ids = m.add_landmarks(
+        rng.normal(size=(n_lm, 3)).astype(np.float32), desc, bits, -1, np.zeros(n_lm, np.int32),
+        np.zeros((n_lm, 3), np.float32), np.full(n_lm, 0.1, np.float32), np.full(n_lm, 100.0, np.float32),
+    )
+    map_lock = threading.Lock()
+
+    def insert_kf(r):
+        lm_idx = np.full(N_F, -1, np.int32)
+        lm_idx[: N_F // 2] = rng.choice(ids, N_F // 2, replace=False)
+        return m.add_keyframe(
+            np.eye(3, dtype=np.float32), np.zeros(3, np.float32), np.zeros((N_F, 2), np.float32),
+            np.zeros(N_F, np.int32), np.zeros(N_F, np.float32), np.zeros((N_F, 8), np.uint32),
+            np.ones(N_F, bool), lm_idx, 0.05 * r, r,
+        )
+
+    for r in range(24):
+        insert_kf(r)
+
+    def track(r):
+        with map_lock:
+            if m.n_keyframes() >= 28:
+                m.remove_keyframe(int(np.nonzero(m.kf_valid)[0][0]))
+            insert_kf(r)
+
+    def loop(r):
+        for j in range(3):
+            with map_lock:
+                live = ids[m.lm_valid[ids]]
+                m.replace_landmark(int(live[(r + j) % len(live)]), int(live[(r + j + 7) % len(live)]))
+                for k in np.nonzero(m.kf_valid)[0][2 * j: 2 * j + 4]:
+                    free = np.nonzero(m.kf_lm_idx[k] < 0)[0][:2]
+                    m.add_observation(int(k), free, live[(r + np.arange(len(free)) * 13) % len(live)])
+
+    def read(_):
+        for k in np.nonzero(m.kf_valid)[0][:12]:
+            m.covisible_keyframes(int(k), min_weight=1)
+
+    for r in range(24, 274):
+        gate = threading.Barrier(3)
+
+        def run(fn, r=r, gate=gate):
+            gate.wait()
+            fn(r)
+
+        threads = [threading.Thread(target=run, args=(fn,)) for fn in (track, loop, read)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        dense = m.obs.astype(np.int32) @ m.obs.astype(np.int32).T
+        if not m._native_dirty:
+            # The mirror as published, before any rebuild a read would do.
+            for k in np.nonzero(m.kf_valid)[0]:
+                w = m._native.covis_row(int(k))
+                w[~m.kf_valid] = 0
+                want = dense[k].copy()
+                want[k] = 0
+                want[~m.kf_valid] = 0
+                assert np.array_equal(w, want), f"round {r}: keyframe {k}'s covisibility row is stale"
+        for k in np.nonzero(m.kf_valid)[0]:
+            want = dense[k].copy()
+            want[k] = 0
+            want[~m.kf_valid] = 0
+            assert np.array_equal(m.covisibility_weights(int(k)), want), f"round {r}: keyframe {k}"

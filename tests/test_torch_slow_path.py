@@ -166,11 +166,16 @@ def load_ref_state(ref, state, map_arrays):
     ref._dev_local = None
 
 
-def jax_features(img):
-    f = jorb.extract_orb_jit(jnp.asarray(np.clip(img, 0, 255).astype(np.uint8), jnp.float32), jorb.OrbParams(n_features=N_FEAT))
-    xy = np.asarray(f.xy)  # no distortion: the undistorted keypoints are the raw ones
-    desc = np.asarray(f.desc)
-    return dict(xy=xy, level=np.asarray(f.level), angle=np.asarray(f.angle), desc=desc, valid=np.asarray(f.valid))
+def frame_features(img):
+    """The ORB features of an image, as the inputs both trackers are stepped
+    with (the port's extraction: the describe stage's parity is
+    tests/test_torch_describe.py's, and it compiles nothing)."""
+    from orbslam3_cpp_fork_tpu_torch.ops import orb as torb
+
+    f = torb.extract_orb(torch.from_numpy(np.clip(img, 0, 255).astype(np.uint8)).to(torch.float32), OrbParams(n_features=N_FEAT))
+    # No distortion: the undistorted keypoints are the raw ones.
+    return dict(xy=f.xy.numpy(), level=f.level.numpy(), angle=f.angle.numpy(), desc=f.desc_numpy(),
+                valid=f.valid.numpy())
 
 
 def no_features():
@@ -201,7 +206,7 @@ def states():
         if i in (EARLY, N_FRAMES - 1):
             snaps[i] = (convert.tracker_state_to_numpy(trk), convert.map_state_to_numpy(trk.map))
     assert trk.state == tt.TrackState.OK and trk.n_fused_declined == 0
-    nxt = {i: jax_features(synthetic.render_frame(scene, Rs[i], ts[i])) for i in (EARLY + 1, N_FRAMES - 1, N_FRAMES)}
+    nxt = {i: frame_features(synthetic.render_frame(scene, Rs[i], ts[i])) for i in (EARLY + 1, N_FRAMES - 1, N_FRAMES)}
     return scene, snaps, nxt
 
 
@@ -304,10 +309,13 @@ def test_loss_on_a_young_map_goes_straight_to_lost(states):
     assert sg == sr == ("LOST", False)
     assert got.n_lost_events == ref.n_lost_events == 1
     assert got.velocity is None and got.last.R is None
-    # Relocalization is not ported: LOST stays LOST and the frame is counted.
+    # The next frame with features relocalizes against the recent keyframes,
+    # as the reference's does; a featureless one stays LOST and is counted.
     n0 = got.n_lost_frames
-    assert _step(got, tt, states[2][EARLY + 1], EARLY + 2) == ("LOST", False)
-    assert got.n_lost_frames == n0 + 1
+    assert _step(got, tt, no_features(), EARLY + 2) == _step(ref, jt, no_features(), EARLY + 2) == ("LOST", False)
+    assert got.n_lost_frames == n0 + 1 and got.lost_frames == 1
+    assert _step(got, tt, states[2][EARLY + 1], EARLY + 3) == _step(ref, jt, states[2][EARLY + 1], EARLY + 3) == ("OK", True)
+    assert got.lost_frames == 0 and got.events[-1]["kind"] == "reloc"
 
 
 def test_recently_lost_ladder_on_featureless_frames(states):

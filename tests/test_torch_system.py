@@ -208,7 +208,7 @@ def test_system_builds_the_tracker_configuration(tmp_path):
         (dict(use_viewer=True), "A15"),
         (dict(live_viewer=True), "A15"),
         (dict(load_atlas="atlas.npz"), "A12"),
-        (dict(), "A10"),  # loop closing is the reference's default and is not ported
+        (dict(sensor=Sensor.RGBD), "A11"),
     ],
 )
 def test_system_refuses_what_is_not_ported(kw, item):
@@ -218,10 +218,14 @@ def test_system_refuses_what_is_not_ported(kw, item):
 
 def test_system_refuses_unported_calls_and_defaults_to_the_card():
     system = System(_settings(320, 240), enable_loop_closing=False, async_mapping=False, device="cpu")
-    for call, item in ((system.track_stereo, "A11"), (system.track_rgbd, "A11"),
-                       (system.activate_localization_mode, "A10"), (lambda: system.save_atlas("x"), "A12")):
+    for call, item in ((system.track_stereo, "A11"), (system.track_rgbd, "A11"), (lambda: system.save_atlas("x"), "A12")):
         with pytest.raises(NotImplementedError, match=item):
             call()
+    # Localization mode pauses keyframe insertion.
+    system.activate_localization_mode()
+    assert system.tracker.localization_only
+    system.deactivate_localization_mode()
+    assert not system.tracker.localization_only
     assert system.tracker.worker is None and system.tracker.pipeline_lag == 0
     system.shutdown()
     if not torch.cuda.is_available():

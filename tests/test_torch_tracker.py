@@ -245,16 +245,22 @@ def test_mapping_step_parity(tracked, sequence):
         (dict(imu=object()), "A13"),
         (dict(sensor=tt.Sensor.IMU_STEREO), "A13"),
         (dict(sensor=tt.Sensor.IMU_RGBD), "A13"),
-        (dict(enable_loop_closing=True), "A10"),
+        (dict(enable_loop_closing=True, sensor=tt.Sensor.STEREO), "A11"),
     ],
 )
 def test_unsupported_configs_are_refused(kw, item):
     base = dict(camera=convert.camera_from_numpy(400, 400, 320, 240), async_mapping=False, enable_loop_closing=False)
     with pytest.raises(NotImplementedError, match=item):
         tt.MonoTracker(tt.TrackerConfig(**{**base, **kw}), "cpu")
-    # The reference's default (loop closing) is outside the slice too.
-    with pytest.raises(NotImplementedError, match="A10"):
-        tt.MonoTracker(tt.TrackerConfig(camera=base["camera"]), "cpu")
+    # The reference's default (loop closing and global BA on, both workers)
+    # is the port's too.
+    trk = tt.MonoTracker(tt.TrackerConfig(camera=base["camera"]), "cpu")
+    try:
+        assert trk.cfg.enable_loop_closing and trk.cfg.enable_global_ba
+        assert trk.loop_closer is not None and trk.loop_worker is not None and trk.worker is not None
+    finally:
+        trk.worker.stop()
+        trk.loop_worker.stop()
 
 
 @pytest.mark.parametrize(
