@@ -10,10 +10,14 @@ Same scene and trajectory as bench.py (the 300-frame synthetic ring at
 an untimed free-running warm-up, the frame-synchronous control (its ATE is
 the accuracy of the algorithms with the concurrency layer removed), then the
 timed run in the shipping mode (mapping worker, loop worker, pipelined
-tracking) with frames delivered at the 20 fps camera rate. Prints one JSON
-object, as its last line, with those of bench.py's keys that exist without
-the Atlas, and the card's name and power limit. Needs a CUDA card and says so
-when there is none.
+tracking) with frames delivered at the 20 fps camera rate. Then the stereo
+lane, which bench.py never had: chip_smoke.py's stereo scene (the ring of
+tests/test_stereo_loop_e2e.py, a 0.2 m rig, 752x480, uint8 pairs) over a
+300-frame circle, through `System(..., Sensor.STEREO)` in the shipping
+mode, paced at 20 fps. Prints one JSON object, as its last line, with those
+of bench.py's keys that exist without the Atlas, the stereo lane's under
+"stereo", and the card's name and power limit. Needs a CUDA card and says
+so when there is none.
 """
 
 from __future__ import annotations
@@ -25,6 +29,8 @@ import sys
 import time
 
 import numpy as np
+
+STEREO_FRAMES = 300  # the stereo lane's circle, as long as the mono lanes' ring
 
 
 def _render_sequence(n_frames):
@@ -67,6 +73,46 @@ def _run_slam(scene, frames, async_mapping=True, paced=False):
     system.tracker.flush_mapping()  # pipeline + mapping drain
     wall = time.perf_counter() - t_start
     return system, lat, stamps, t_track, wall
+
+
+def _run_stereo(n_frames):
+    """The stereo lane: System(STEREO) in the shipping mode, paced at 20 fps;
+    fps, latency, unscaled and scale-aligned ATE, loops."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import chip_smoke
+    from orbslam3_cpp_fork_tpu_torch.ops.orb import OrbParams
+    from orbslam3_cpp_fork_tpu_torch.runtime.tracker import Sensor
+
+    scene, Rs, ts, pairs = chip_smoke.render_stereo_loop(n_frames)
+    K = scene.K
+    system = chip_smoke.make_system(
+        "cuda", scene, OrbParams(n_features=1000), enable_loop_closing=True, sensor=Sensor.STEREO,
+        bf=chip_smoke.STEREO_BASELINE * float(K[0, 0]), stereo_th_depth=40.0,
+    )
+    stamps = np.arange(n_frames) * 0.05
+    lat = np.zeros(n_frames)
+    t_start = time.perf_counter()
+    for i, (l, r) in enumerate(pairs):
+        dt = float(stamps[i]) - (time.perf_counter() - t_start)
+        if dt > 0:
+            time.sleep(dt)
+        t0 = time.perf_counter()
+        system.track_stereo(l, r, float(stamps[i]))
+        lat[i] = time.perf_counter() - t0
+    t_track = time.perf_counter() - t_start
+    tracker = system.tracker
+    ate, coverage = _traj_ate(tracker, stamps, ts, n_frames)
+    system.shutdown()
+    med, p99 = float(np.median(lat)), float(np.quantile(lat, 0.99))
+    return {
+        "fps": round(n_frames / t_track, 2), "track_ms_median": round(med * 1e3, 2),
+        "track_ms_p99": round(p99 * 1e3, 2), "ate_unit_m": round(float(ate.rmse), 4) if ate else float("nan"),
+        "ate_scale": round(float(ate.scale), 4) if ate else float("nan"),
+        "ate_scaled_m": round(float(ate.rmse_scaled), 4) if ate else float("nan"),
+        "coverage": round(float(coverage), 3), "n_lost_events": int(tracker.n_lost_events),
+        "n_loops_closed": int(system.n_loops_closed), "n_keyframes": int(tracker.map.n_keyframes()),
+        "n_frames": n_frames,
+    }
 
 
 def _traj_ate(tracker, stamps, ts, n_frames):
@@ -130,6 +176,8 @@ def main() -> int:
     system.shutdown()
     loop_frames = [e["kf_frame"] for e in tracker.loop_closer.events if e["kind"] == "loop"]
 
+    stereo = _run_stereo(STEREO_FRAMES)
+
     med, p99 = float(np.median(lat)), float(np.quantile(lat, 0.99))
     slow_frames = [
         {"frame": int(i), "ms": round(float(lat[i]) * 1e3, 1), "causes": tracker.frame_causes.get(int(i), [])}
@@ -175,6 +223,7 @@ def main() -> int:
         "n_frames": len(frames),
         "stage_ms_mean": stages,
         "slow_frames": slow_frames,
+        "stereo": stereo,
     }))
     return 0
 

@@ -78,6 +78,30 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                must be OK again within 10 frames, and the relocalized camera
                centre, Sim(3)-aligned by the tracked pre-teleport poses,
                within 0.3 m of frame 50's ground truth.
+  9. stereo  - first the fused describe kernel against its plain version
+               (the kernel phase's gates) on this phase's pyramids: a
+               stereo pair's two images and an RGB-D frame. Part A: the
+               scene of tests/test_stereo_loop_e2e.py (a 0.2 m rig, bf =
+               0.2 fx, th_depth = 0.2 x 40, a 2.3 pi circle in 110 frames)
+               at the loop phase's 752x480 with 1000 features, the
+               synchronous tracker with loop closing and the global BA on:
+               initialized at frame 0, > 90 of 110 pairs tracked, a loop
+               closed in SE(3) (fix_scale), a global BA applied, unscaled
+               ATE within max(JAX, port on the CPU) + 10 mm and 0.25 m,
+               |scale - 1| < 0.05; a second run gives the same trajectory
+               bit for bit. Part B: tests/test_stereo.py's RGB-D sequence
+               at 640x480 (20 frames, depth from the renderer): every frame
+               tracked, unscaled ATE within its CPU bound, |scale - 1| <
+               0.03. Part C: the default mode through System (mapping and
+               loop workers) on part A's pairs: no thread error, > 80%
+               exported in order, unscaled ATE of the poses tracked while OK
+               <= 2 x part A's + 0.02 m; then one raw pair of the
+               unrectified pinhole rig of tests/test_rectify.py at its
+               752x480 through System's rectification: remap_bilinear on
+               the card held against the CPU within 1e-4 of the gray range,
+               the map initialized from the pair, its landmarks' depths
+               against the rendered depth. orb_describe runs twice a stereo
+               pair and once an RGB-D frame.
 `--profile N` adds a torch.profiler pass over N frames (kernel launches and
 device time per frame, host time per stage) and over the SLAM phase's
 tracked frames and mapping steps, `--compare-routes` a timing of the tracker
@@ -156,6 +180,32 @@ RELOC_WITHIN = 10
 RELOC_TOL_M = 0.3
 LADDER_FRAMES = 60  # prefix of the ring used by the blackout part
 LADDER_BLACK = (45, 49)  # frames replaced by black images
+# The stereo phase: the scene of tests/test_stereo_loop_e2e.py (0.2 m rig,
+# a 2.3 pi circle in 110 frames) at the loop phase's 752x480 and 1000
+# features, synchronous and in the default mode; tests/test_stereo.py's
+# RGB-D sequence at 640x480.
+STEREO_FRAMES = 110
+STEREO_WIDTH, STEREO_HEIGHT = 752, 480
+STEREO_TURNS = 2.3  # the circle's angle in units of pi
+STEREO_BASELINE = 0.2
+STEREO_MIN_TRACKED = 90
+STEREO_MAX_ATE_M = 0.25  # the unscaled bar of tests/test_stereo_loop_e2e.py
+STEREO_SCALE_TOL = 0.05
+RGBD_FRAMES = 20
+RGBD_SCALE_TOL = 0.03
+REMAP_TOL = 1e-4  # of the gray range, card vs CPU
+# The rectified pair's landmark depths against the rendered depth: a wrong
+# baseline or rotation biases them, misaligned rows scatter them. The
+# spread is the row-band matcher's on these blobs at this rig's 0.11 m
+# baseline (0.0548 on the CPU and on the card, PERF.md).
+REMAP_DEPTH_BIAS = 0.02
+REMAP_DEPTH_SPREAD = 0.10
+# Unscaled ATE RMSE (m) of the synchronous runs on a CPU (PERF.md; pytest
+# -m slow -s tests/test_torch_stereo_tracker.py -k full_width).
+STEREO_JAX_ATE_M = 0.042988
+STEREO_PORT_ATE_M = 0.044783
+RGBD_JAX_ATE_M = 0.005728
+RGBD_PORT_ATE_M = 0.005598
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOPS = 67e12  # H100 SXM data sheet, float32 outside the tensor cores
 
@@ -309,6 +359,37 @@ def phase_kernel_gather(dev, inputs):
     return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes")
 
 
+def hold_describe(name, lv, bl, kp, gate, flat_tail=False):
+    """One fused describe launch against the plain version on the same
+    levels and keypoints: angle within TOL_ANGLE on the gated slots (valid
+    keypoints whose moment is not ill-conditioned), bits exact wherever both
+    bins agree, at most 1% of gated slots in another bin; with `flat_tail`
+    the last 5 slots lie on a flat level. Returns the angle error."""
+    import torch
+
+    from orbslam3_cpp_fork_tpu_torch.ops import patches
+
+    got = patches.describe_keypoints(lv, bl, kp)
+    torch.cuda.synchronize()
+    ref = patches.describe_keypoints_plain(lv, bl, kp)
+    norm = moment_norm(lv, kp)
+    strong = (norm >= MIN_MOMENT) | (norm == 0)
+    gate = strong if gate is None else gate & strong
+    err, bins, bins_gated, bad_bits, n = describe_diff(got, ref, gate)
+    log(f"kernel: orb_describe vs plain on {name}: {n} slots in 1 launch, {int(gate.sum())} gated (valid "
+        f"keypoints with |m| >= {MIN_MOMENT:g} or 0); max angle err {err:.3e} rad on gated slots; "
+        f"differing bins {bins} (gated {bins_gated}); differing bits on equal bins {bad_bits}")
+    if flat_tail and (got[0][-5:].any() or got[1][-5:].any() or got[2][-5:].any()):
+        fail(f"orb_describe on {name}: a flat window must give angle 0 and no set bit")
+    if err > TOL_ANGLE:
+        fail(f"orb_describe angle differs from the plain version on {name}: {err} rad > {TOL_ANGLE}")
+    if bad_bits:
+        fail(f"orb_describe on {name}: {bad_bits} bits differ where both bins agree")
+    if bins_gated > 0.01 * max(int(gate.sum()), 100):
+        fail(f"orb_describe on {name}: {bins_gated} gated slots in another bin than the plain version")
+    return err
+
+
 def phase_kernel_describe(dev, inputs):
     """Fused describe vs plain on a real frame's 8 levels (one launch) and
     on edge cases; then its time, the plain version's and the per-level
@@ -340,27 +421,7 @@ def phase_kernel_describe(dev, inputs):
               kps(shapes[3], 5)]
         cases.append((f"edges_n{n}", lv, [image.gaussian_blur7(x).contiguous() for x in lv], kp, None))
 
-    worst = 0.0
-    for name, lv, bl, kp, gate in cases:
-        got = patches.describe_keypoints(lv, bl, kp)
-        torch.cuda.synchronize()
-        ref = patches.describe_keypoints_plain(lv, bl, kp)
-        norm = moment_norm(lv, kp)
-        strong = (norm >= MIN_MOMENT) | (norm == 0)
-        gate = strong if gate is None else gate & strong
-        err, bins, bins_gated, bad_bits, n = describe_diff(got, ref, gate)
-        log(f"kernel: orb_describe vs plain on {name}: {n} slots in 1 launch, {int(gate.sum())} gated (valid "
-            f"keypoints with |m| >= {MIN_MOMENT:g} or 0); max angle err {err:.3e} rad on gated slots; "
-            f"differing bins {bins} (gated {bins_gated}); differing bits on equal bins {bad_bits}")
-        if name != "frame" and (got[0][-5:].any() or got[1][-5:].any() or got[2][-5:].any()):
-            fail(f"orb_describe on {name}: a flat window must give angle 0 and no set bit")
-        if err > TOL_ANGLE:
-            fail(f"orb_describe angle differs from the plain version on {name}: {err} rad > {TOL_ANGLE}")
-        if bad_bits:
-            fail(f"orb_describe on {name}: {bad_bits} bits differ where both bins agree")
-        if bins_gated > 0.01 * max(int(gate.sum()), 100):
-            fail(f"orb_describe on {name}: {bins_gated} gated slots in another bin than the plain version")
-        worst = max(worst, err)
+    worst = max(hold_describe(name, lv, bl, kp, gate, flat_tail=name != "frame") for name, lv, bl, kp, gate in cases)
 
     # Turns: fused, plain, per-level, per-level, plain, fused; the mean of each.
     fns = dict(
@@ -655,20 +716,24 @@ def phase_slam(dev, scene, ts, frames, orb_params, gate_ate):
                           p99_ms=float(np.percentile(all_ms, 99)), fps=n / (all_ms.sum() / 1e3))
 
 
-def make_system(dev, scene, orb_params, async_mapping=True, enable_loop_closing=False):
-    """The port's System over a Settings object made in code (no YAML)."""
+def make_system(dev, scene, orb_params, async_mapping=True, enable_loop_closing=False, sensor=None, camera=None,
+                **settings_kw):
+    """The port's System over a Settings object made in code (no YAML);
+    `settings_kw` are further Settings fields (bf, a second camera...)."""
     from orbslam3_cpp_fork_tpu_torch import convert
     from orbslam3_cpp_fork_tpu_torch.runtime.system import System
+    from orbslam3_cpp_fork_tpu_torch.runtime.tracker import Sensor
     from orbslam3_cpp_fork_tpu_torch.utils.settings import Settings
 
     K = scene.K
     settings = Settings(
-        camera_type="PinHole", camera=convert.camera_from_numpy(K[0, 0], K[1, 1], K[0, 2], K[1, 2]),
+        camera_type="PinHole", camera=camera or convert.camera_from_numpy(K[0, 0], K[1, 1], K[0, 2], K[1, 2]),
         width=scene.width, height=scene.height, fps=30.0, rgb=False, n_features=orb_params.n_features,
         scale_factor=orb_params.scale_factor, n_levels=orb_params.n_levels,
-        ini_th_fast=int(orb_params.th_fast_high), min_th_fast=int(orb_params.th_fast_low),
+        ini_th_fast=int(orb_params.th_fast_high), min_th_fast=int(orb_params.th_fast_low), **settings_kw,
     )
-    return System(settings, async_mapping=async_mapping, enable_loop_closing=enable_loop_closing, device=dev)
+    return System(settings, sensor or Sensor.MONOCULAR, async_mapping=async_mapping,
+                  enable_loop_closing=enable_loop_closing, device=dev)
 
 
 def run_async(dev, scene, frames, orb_params, time_recently_lost=None):
@@ -829,6 +894,51 @@ def render_loop():
     Rs, ts = synthetic.circle_trajectory(n_frames=LOOP_FRAMES, radius=2.5, total_angle=2.3 * np.pi)
     frames = [synthetic.to_u8(synthetic.render_frame(scene, Rs[i], ts[i])) for i in range(LOOP_FRAMES)]
     return scene, Rs, ts, frames
+
+
+def render_stereo_loop(n_frames=STEREO_FRAMES):
+    """The scene of tests/test_stereo_loop_e2e.py at 752x480 over a 2.3 pi
+    circle of `n_frames`: scene, GT camera-to-world poses, uint8 (left,
+    right) pairs of the 0.2 m rig."""
+    import numpy as np
+
+    from orbslam3_cpp_fork_tpu_torch.datasets import synthetic
+
+    scene = synthetic.make_ring_scene(seed=13, n_points=900, size_range=(9, 15), width=STEREO_WIDTH,
+                                      height=STEREO_HEIGHT)
+    Rs, ts = synthetic.circle_trajectory(n_frames=n_frames, radius=2.5, total_angle=STEREO_TURNS * np.pi)
+    pairs = [
+        (synthetic.to_u8(synthetic.render_frame(scene, Rs[i], ts[i])),
+         synthetic.to_u8(synthetic.render_frame(scene, *synthetic.stereo_right_pose(Rs[i], ts[i], STEREO_BASELINE))))
+        for i in range(n_frames)
+    ]
+    return scene, Rs, ts, pairs
+
+
+def render_rgbd():
+    """tests/test_stereo.py's RGB-D sequence at 640x480: scene, GT poses,
+    uint8 frames and depth maps in meters."""
+    from orbslam3_cpp_fork_tpu_torch.datasets import synthetic
+
+    scene = synthetic.make_scene(seed=5, n_points=1500)
+    Rs, ts = synthetic.smooth_trajectory(n_frames=RGBD_FRAMES, step=0.12, yaw_rate=0.002)
+    frames = [(synthetic.to_u8(synthetic.render_frame(scene, R, t)), synthetic.render_depth(scene, R, t))
+              for R, t in zip(Rs, ts)]
+    return scene, Rs, ts, frames
+
+
+def stereo_config(scene, orb_params, **kw):
+    """The stereo/RGB-D TrackerConfig of tests/test_stereo.py's rigs: bf =
+    0.2 fx, th_depth = 0.2 x 40; the reference's defaults otherwise."""
+    from orbslam3_cpp_fork_tpu_torch import convert
+    from orbslam3_cpp_fork_tpu_torch.runtime.tracker import Sensor, TrackerConfig
+
+    K = scene.K
+    return TrackerConfig(
+        camera=convert.camera_from_numpy(K[0, 0], K[1, 1], K[0, 2], K[1, 2]), width=scene.width,
+        height=scene.height, orb=orb_params, bf=STEREO_BASELINE * float(K[0, 0]), th_depth=STEREO_BASELINE * 40.0,
+        **{"sensor": Sensor.STEREO, **kw},
+    )
 
 
 def revisit(Rs, ts, ev):
@@ -1072,6 +1182,231 @@ def phase_loop(dev, orb_params, gate_ate):
     return launches
 
 
+def run_stereo_sync(dev, scene, pairs, orb_params):
+    """Part A's synchronous stereo run: the tracker in the reference's
+    default configuration but for async_mapping=False."""
+    import numpy as np
+
+    from orbslam3_cpp_fork_tpu_torch.runtime.tracker import Tracker
+
+    trk = Tracker(stereo_config(scene, orb_params, async_mapping=False), dev)
+    if not (trk.cfg.enable_loop_closing and trk.cfg.enable_global_ba and trk.loop_closer is not None):
+        fail("stereo A: the default TrackerConfig does not close loops")
+    read = counted(dev)
+    t0 = time.perf_counter()
+    poses = [trk.track_stereo(l, r, i * 0.05) for i, (l, r) in enumerate(pairs)]
+    secs = time.perf_counter() - t0
+    ts_est, Twc = trk.export_trajectory()
+    return trk, poses, ts_est, Twc, read(), secs
+
+
+def remap_check(dev, scene, R_wc, t_wc):
+    """One raw pair of the unrectified pinhole rig of tests/test_rectify.py,
+    at its 752x480, through System's rectification on the card; returns the
+    describe launches. The pair is the stereo scene at (R_wc, t_wc) seen by
+    the rectified rig (System's K_new, R1, R2), carried into each raw camera
+    by the inverse of its rectification map (rectify_points, then
+    remap_bilinear on the CPU). Gates: the card's remap equals the CPU's
+    within REMAP_TOL of the gray range; the pair initializes the map (state
+    OK, two describe launches); the depths of the new landmarks against the
+    rendered depth at their keypoints: the median relative error within
+    REMAP_DEPTH_BIAS, the median of its size within REMAP_DEPTH_SPREAD."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from orbslam3_cpp_fork_tpu_torch.datasets import synthetic
+    from orbslam3_cpp_fork_tpu_torch.ops.camera import Camera
+    from orbslam3_cpp_fork_tpu_torch.ops.image import remap_bilinear
+    from orbslam3_cpp_fork_tpu_torch.ops.orb import OrbParams
+    from orbslam3_cpp_fork_tpu_torch.runtime.tracker import Sensor
+    from orbslam3_cpp_fork_tpu_torch.utils import rectify
+
+    T = np.eye(4)
+    T[:3, :3] = rectify._rodrigues_inv(np.array([0.004, -0.015, 0.008]))
+    T[:3, 3] = [0.110, 0.0004, -0.0008]
+    K1 = np.array([[458.0, 0, 367.2], [0, 457.3, 248.4], [0, 0, 1.0]])
+    K2 = np.array([[457.6, 0, 379.9], [0, 456.1, 255.2], [0, 0, 1.0]])
+    d1, d2 = np.array([-0.28, 0.074, 1.8e-4, 1.5e-5, 0.0]), np.array([-0.284, 0.076, -1.0e-4, 2.0e-5, 0.0])
+
+    class Rig:
+        K, width, height = K1.astype(np.float32), 752, 480
+
+    system = make_system(
+        dev, Rig, OrbParams(n_features=N_FEATURES), async_mapping=False, sensor=Sensor.STEREO,
+        camera=Camera.pinhole(K1[0, 0], K1[1, 1], K1[0, 2], K1[1, 2], tuple(d1)),
+        camera2=Camera.pinhole(K2[0, 0], K2[1, 1], K2[0, 2], K2[1, 2], tuple(d2)),
+        Tlr=T, stereo_th_depth=40.0,
+    )
+    r = system._rect
+    if r is None:
+        fail("stereo C: the unrectified pinhole rig was not rectified")
+    # Camera-to-world poses of the rectified views: x_rect = R1 x_c1 and
+    # x_rect = R2 x_c2, camera 2 at t_c1_c2 in camera 1.
+    R_l, c_l = R_wc @ r.R1.T, t_wc
+    R_r, c_r = R_wc @ T[:3, :3] @ r.R2.T, t_wc + R_wc @ T[:3, 3]
+    if not (np.allclose(R_l, R_r, atol=1e-9) and np.allclose(R_l.T @ (c_r - c_l), [r.baseline, 0, 0], atol=1e-9)):
+        fail("stereo C: the rectified views are not a rectified pair")
+    width, height = Rig.width, Rig.height
+    rect_scene = dataclasses.replace(scene, width=width, height=height, K=r.K_new.astype(np.float32))
+    u, v = np.meshgrid(np.arange(width, dtype=np.float64), np.arange(height, dtype=np.float64))
+    grid = np.stack([u.ravel(), v.ravel()], 1)
+    raw = []
+    for K, d, R_rect, R_v, c_v in ((K1, d1, r.R1, R_l, c_l), (K2, d2, r.R2, R_r, c_r)):
+        m = rectify.rectify_points(grid, K, d, R_rect, r.K_new).astype(np.float32)
+        img = torch.from_numpy(synthetic.render_frame(rect_scene, R_v.astype(np.float32), c_v.astype(np.float32)))
+        mx, my = (torch.from_numpy(np.ascontiguousarray(m[:, k].reshape(height, width))) for k in (0, 1))
+        raw.append(synthetic.to_u8(remap_bilinear(img, mx, my).numpy()))
+    img_l, img_r = (x.astype(np.float32) for x in raw)
+    got_l, got_r = system._remap_pair(img_l, img_r)
+    ref_l = remap_bilinear(torch.from_numpy(img_l), torch.from_numpy(r.map1_x), torch.from_numpy(r.map1_y)).numpy()
+    ref_r = remap_bilinear(torch.from_numpy(img_r), torch.from_numpy(r.map2_x), torch.from_numpy(r.map2_y)).numpy()
+    err = float(max(np.abs(got_l - ref_l).max(), np.abs(got_r - ref_r).max()))
+    read = counted(dev)
+    pose = system.track_stereo(raw[0], raw[1], 0.0)
+    cnt, host = read()
+    trk = system.tracker
+    ids = trk.last.lm_idx[trk.last.lm_idx >= 0]
+    xy = np.round(trk.last.xy[trk.last.lm_idx >= 0]).astype(int)
+    true = synthetic.render_depth(rect_scene, R_l.astype(np.float32), c_l.astype(np.float32))[xy[:, 1], xy[:, 0]]
+    on = true > 0
+    rel = (trk.map.lm_pos[ids[on], 2] - true[on]) / true[on]
+    bias, spread = (float(np.median(x)) if on.any() else float("nan") for x in (rel, np.abs(rel)))
+    system.shutdown()
+    log(f"stereo C: the unrectified rig's raw pair (752x480, baseline {r.baseline:.4f} m, bf {r.bf:.3f}): "
+        f"remap_bilinear on the card vs the CPU max |diff| {err:.3e} gray levels (gate {REMAP_TOL * 255:.4f}); "
+        f"state {trk.state.name}, {len(ids)} landmarks; relative depth error over {int(on.sum())} of them: median "
+        f"{bias:.4f} (gate {REMAP_DEPTH_BIAS}), median of its size {spread:.4f} (gate {REMAP_DEPTH_SPREAD}); describe "
+        f"launches {cnt}")
+    if not err <= REMAP_TOL * 255:
+        fail(f"stereo C: remap_bilinear differs from the CPU by {err:.3e} gray levels")
+    if pose is None or trk.state.name != "OK":
+        fail(f"stereo C: the rectified pair did not initialize the map (state {trk.state.name})")
+    if not (abs(bias) < REMAP_DEPTH_BIAS and spread < REMAP_DEPTH_SPREAD):
+        fail(f"stereo C: the rectified pair's landmark depths are off: median relative error {bias}, of its size "
+             f"{spread}")
+    if cnt != 2 or host != 2:
+        fail(f"stereo C: orb_describe ran {cnt} times on the card ({host} by the wrapper) for one rectified pair")
+    return cnt
+
+
+def phase_stereo(dev, orb_params, gate_ate):
+    """Stereo and RGB-D on the card (module docstring, phase 9)."""
+    import numpy as np
+
+    from orbslam3_cpp_fork_tpu_torch.runtime.tracker import Sensor, Tracker
+    from orbslam3_cpp_fork_tpu_torch.utils.evaluation import ate_rmse
+
+    scene, Rs, ts, pairs = render_stereo_loop()
+    scene_b, Rs_b, ts_b, frames_b = render_rgbd()
+    n = len(pairs)
+    stamps = np.arange(n) * 0.05
+    launches = 0
+
+    # The fused describe kernel against its plain version on this phase's
+    # pyramids: a stereo pair's two 752x480 images and a 640x480 RGB-D
+    # frame (not counted: the counts are zeroed before each run below).
+    worst = max(
+        hold_describe(f"stereo {name} ({img.shape[1]}x{img.shape[0]}, {N_FEATURES} features)",
+                      *frame_levels(dev, img, orb_params))
+        for name, img in (("left", pairs[0][0]), ("right", pairs[0][1]), ("RGB-D", frames_b[0][0]))
+    )
+
+    # Part A: synchronous stereo with loop closing and the global BA, twice.
+    runs = []
+    for r in range(2):
+        trk, poses, ts_est, Twc, (cnt, host), secs = run_stereo_sync(dev, scene, pairs, orb_params)
+        if cnt != 2 * n or host != 2 * n:
+            fail(f"stereo A: orb_describe ran {cnt} times on the card ({host} by the wrapper) for {n} pairs")
+        launches += cnt
+        ok = np.asarray([T is not None for T in poses])
+        runs.append((trk, poses, ts_est, Twc))
+        log(f"stereo A run {r + 1}: tracked {int(ok.sum())}/{n} pairs, state {trk.state.name}, keyframes "
+            f"{trk.map.n_keyframes()}, landmarks {trk.map.n_landmarks()}, {secs:.2f} s ({n / secs:.3f} fps)")
+    trk, poses, ts_est, Twc = runs[0]
+    ok = np.asarray([T is not None for T in poses])
+    loops, gbas = loop_report("stereo A", trk, Rs, ts)
+    ate = ate_rmse(ts_est, Twc[:, :3, 3], stamps, ts)
+    bound = min(max(STEREO_JAX_ATE_M, STEREO_PORT_ATE_M) + TOL_LOOP_ATE_M, STEREO_MAX_ATE_M)
+    same = Twc.shape == runs[1][3].shape and np.array_equal(Twc, runs[1][3])
+    log(f"stereo A: unscaled ATE RMSE {ate.rmse:.6f} m over {ate.n_pairs} frames (scale {ate.scale:.4f}, "
+        f"scale-aligned {ate.rmse_scaled:.6f} m); bound min(max({STEREO_JAX_ATE_M:.6f}, {STEREO_PORT_ATE_M:.6f}) + "
+        f"{TOL_LOOP_ATE_M}, {STEREO_MAX_ATE_M}) = {bound:.6f} m; loop closer fix_scale {trk.loop_closer.cfg.fix_scale}; "
+        f"second run bitwise equal to the first: {same}")
+    if not ok[0]:
+        fail("stereo A: not initialized at frame 0")
+    if ok.sum() <= STEREO_MIN_TRACKED:
+        fail(f"stereo A: {int(ok.sum())} frames tracked (> {STEREO_MIN_TRACKED} required)")
+    if not loops or not trk.loop_closer.cfg.fix_scale:
+        fail(f"stereo A: loops {loops}, fix_scale {trk.loop_closer.cfg.fix_scale} (a loop in SE(3) required)")
+    if not gbas:
+        fail("stereo A: no global BA applied")
+    if not same:
+        fail("stereo A: the second run's trajectory differs from the first")
+    if not abs(ate.scale - 1.0) < STEREO_SCALE_TOL:
+        fail(f"stereo A: scale {ate.scale:.4f} (|scale - 1| < {STEREO_SCALE_TOL} required)")
+    if gate_ate and not ate.rmse <= bound:
+        fail(f"stereo A: unscaled ATE {ate.rmse:.6f} m > {bound:.6f} m")
+
+    # Part B: RGB-D.
+    trk_b = Tracker(stereo_config(scene_b, orb_params, sensor=Sensor.RGBD, async_mapping=False), dev)
+    read = counted(dev)
+    t0 = time.perf_counter()
+    ok_b = [trk_b.track_rgbd(img, dep, i * 0.05) is not None for i, (img, dep) in enumerate(frames_b)]
+    secs = time.perf_counter() - t0
+    cnt, host = read()
+    ts_e, Twc_e = trk_b.export_trajectory()
+    ate_b = ate_rmse(ts_e, Twc_e[:, :3, 3], np.arange(len(frames_b)) * 0.05, ts_b)
+    bound_b = max(RGBD_JAX_ATE_M, RGBD_PORT_ATE_M) + TOL_LOOP_ATE_M
+    log(f"stereo B (RGB-D, 640x480): tracked {sum(ok_b)}/{len(frames_b)}, {secs:.2f} s; unscaled ATE "
+        f"{ate_b.rmse:.6f} m (bound max({RGBD_JAX_ATE_M:.6f}, {RGBD_PORT_ATE_M:.6f}) + {TOL_LOOP_ATE_M} = "
+        f"{bound_b:.6f} m), scale {ate_b.scale:.4f}; describe launches {cnt}")
+    if cnt != len(frames_b) or host != len(frames_b):
+        fail(f"stereo B: orb_describe ran {cnt} times on the card ({host} by the wrapper) for {len(frames_b)} frames")
+    launches_rgbd = cnt
+    if not all(ok_b):
+        fail("stereo B: not every RGB-D frame tracked")
+    if not abs(ate_b.scale - 1.0) < RGBD_SCALE_TOL:
+        fail(f"stereo B: scale {ate_b.scale:.4f} (|scale - 1| < {RGBD_SCALE_TOL} required)")
+    if gate_ate and not ate_b.rmse <= bound_b:
+        fail(f"stereo B: unscaled ATE {ate_b.rmse:.6f} m > {bound_b:.6f} m")
+
+    # Part C: the default mode through System on part A's pairs.
+    K = scene.K
+    system = make_system(dev, scene, orb_params, enable_loop_closing=True, sensor=Sensor.STEREO,
+                         bf=STEREO_BASELINE * float(K[0, 0]), stereo_th_depth=40.0)
+    trk = system.tracker
+    if trk.worker is None or trk.loop_worker is None or not trk.loop_closer.cfg.fix_scale:
+        fail("stereo C: the default mode has no workers or closes loops in Sim(3)")
+    dead = spy_dead_reckoned(trk)
+    read = counted(dev)
+    t0 = time.perf_counter()
+    for i, (l, r) in enumerate(pairs):
+        system.track_stereo(l, r, i * 0.05)
+    t_track = time.perf_counter() - t0
+    ts_c, Twc_c = trk.export_trajectory()  # flushes every worker (re-raising their failures)
+    cnt, host = read()
+    loops_c, _ = loop_report("stereo C", trk, Rs, ts)
+    tracked = tracked_mask(ts_c, dead)
+    ate_c = ate_rmse(ts_c[tracked], Twc_c[tracked, :3, 3], stamps, ts)
+    bound_c = ASYNC_ATE_FACTOR * ate.rmse + ASYNC_ATE_SLACK_M
+    system.shutdown()  # re-raises a failure of any worker thread
+    log(f"stereo C: state {trk.state.name}; {len(ts_c)} poses exported for {n} pairs, {int(tracked.sum())} tracked "
+        f"while OK; loss events {trk.n_lost_events}; {n / t_track:.3f} fps over the track() calls; unscaled ATE of the "
+        f"tracked poses {ate_c.rmse:.6f} m (scale {ate_c.scale:.4f}); bound {ASYNC_ATE_FACTOR} x {ate.rmse:.6f} + "
+        f"{ASYNC_ATE_SLACK_M} = {bound_c:.6f} m; describe launches {cnt}")
+    if cnt != 2 * n or host != 2 * n:
+        fail(f"stereo C: orb_describe ran {cnt} times on the card ({host} by the wrapper) for {n} pairs")
+    launches += cnt
+    if len(ts_c) / n <= ASYNC_MIN_COVERAGE or not np.all(np.diff(ts_c) > 0) or not np.isfinite(Twc_c).all():
+        fail(f"stereo C: {len(ts_c)} of {n} poses exported, or not in order, or not finite")
+    if gate_ate and not ate_c.rmse <= bound_c:
+        fail(f"stereo C: unscaled ATE of the tracked poses {ate_c.rmse:.6f} m > {bound_c:.6f} m")
+    launches += remap_check(dev, scene, Rs[0], ts[0])
+    return launches, launches_rgbd, worst
+
+
 def phase_profile_slam(dev, scene, frames, orb_params):
     """torch.profiler over the SLAM phase's frames after initialization:
     kernel launches and device time per tracked frame and per mapping step
@@ -1244,6 +1579,7 @@ def main(argv=None) -> int:
     from orbslam3_cpp_fork_tpu_torch.ops import _kernels
     from orbslam3_cpp_fork_tpu_torch.ops.orb import OrbParams
 
+    t_smoke = time.perf_counter()
     card = card_line()
     log(f"device: {card}")
     dev = get_device()
@@ -1274,6 +1610,7 @@ def main(argv=None) -> int:
     if args.frames >= LADDER_FRAMES:
         phase_ladder(dev, scene, frames, orb_params)
     loop_launches = phase_loop(dev, orb_params, gate_ate=args.frames == FRAMES)
+    stereo_launches, rgbd_launches, stereo_describe_err = phase_stereo(dev, orb_params, gate_ate=args.frames == FRAMES)
     if args.compare_routes:
         phase_compare_routes(dev, make, frames)
     if args.profile:
@@ -1286,14 +1623,17 @@ def main(argv=None) -> int:
         {
             "name": "orb_describe", "route": "cuda",
             "source": "orbslam3_cpp_fork_tpu_torch/csrc/orb_describe.cu", "replaces": tpu_kernel,
-            # One launch a frame on every main path: localization-only
+            # One launch a frame on every mono path: localization-only
             # tracking, the synchronous cold-start SLAM run, the
-            # asynchronous one and the loop phase's runs (A twice, B, C),
+            # asynchronous one and the loop phase's runs (A twice, B, C);
+            # two a stereo pair and one an RGB-D frame in the stereo phase;
             # each counted from 0.
-            "launches": describe_launches + slam_launches + async_launches + loop_launches,
+            "launches": describe_launches + slam_launches + async_launches + loop_launches + stereo_launches
+            + rgbd_launches,
             "launches_localization": describe_launches, "launches_slam": slam_launches,
             "launches_async": async_launches, "launches_loop": loop_launches,
-            "max_abs_err": describe["max_abs_err"],
+            "launches_stereo": stereo_launches, "launches_rgbd": rgbd_launches,
+            "max_abs_err": max(describe["max_abs_err"], stereo_describe_err),
             "ms": describe["ms"], "plain_ms": describe["plain_ms"],
             "bound_ms": describe["bound_ms"], "bound_by": describe["bound_by"],
             # No single PyTorch call gathers windows, sums moments and
@@ -1312,6 +1652,7 @@ def main(argv=None) -> int:
             "library_ms": None,
         },
     ]}
+    log(f"smoke: {time.perf_counter() - t_smoke:.1f} s in all")
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -210,6 +210,36 @@ def render_frame(scene: SyntheticScene, R_wc: np.ndarray, t_wc: np.ndarray) -> n
     return img
 
 
+def degrade(
+    img: np.ndarray,
+    noise_sigma: float = 0.0,
+    blur_sigma: float = 0.0,
+    exposure: float = 1.0,
+    seed: int = 0,
+) -> np.ndarray:
+    """Photometric degradation for realism gates: additive Gaussian
+    sensor noise, Gaussian motion/defocus blur, and a global exposure
+    gain. The noiseless renders make every ATE best-case; tests also run
+    on degraded variants."""
+    out = img.astype(np.float32) * float(exposure)
+    if blur_sigma > 0:
+        # Separable Gaussian blur via erf-integrated taps.
+        r = max(1, int(np.ceil(3 * blur_sigma)))
+        x = np.arange(-r, r + 1, dtype=np.float32)
+        k = np.exp(-0.5 * (x / blur_sigma) ** 2)
+        k /= k.sum()
+        out = np.apply_along_axis(
+            lambda row: np.convolve(row, k, mode="same"), 1, out
+        )
+        out = np.apply_along_axis(
+            lambda col: np.convolve(col, k, mode="same"), 0, out
+        )
+    if noise_sigma > 0:
+        rng = np.random.default_rng(seed)
+        out = out + rng.normal(0.0, noise_sigma, out.shape).astype(np.float32)
+    return np.clip(out, 0.0, 255.0)
+
+
 def render_depth(scene: SyntheticScene, R_wc: np.ndarray, t_wc: np.ndarray) -> np.ndarray:
     """Depth map matching render_frame's rasterization (for RGB-D tests)."""
     R_cw = R_wc.T
@@ -233,6 +263,11 @@ def render_depth(scene: SyntheticScene, R_wc: np.ndarray, t_wc: np.ndarray) -> n
             v0, v1 = max(iv, 0), min(iv + s, scene.height)
             dep[v0:v1, u0:u1] = zz[j]
     return dep
+
+
+def stereo_right_pose(R_wc: np.ndarray, t_wc: np.ndarray, baseline: float):
+    """Camera-to-world pose of the right camera of a rectified pair."""
+    return R_wc, t_wc + R_wc @ np.array([baseline, 0.0, 0.0], np.float32)
 
 
 def to_u8(img: np.ndarray) -> np.ndarray:

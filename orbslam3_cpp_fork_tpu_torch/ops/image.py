@@ -30,6 +30,23 @@ def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return (a.double() * b.double() + c.double()).float()
 
 
+_POW_MIN = -16  # lowest exponent of the 1.2^k table
+
+
+@functools.lru_cache(maxsize=None)
+def _scale_powers(device: torch.device) -> torch.Tensor:
+    """SCALE_FACTOR ** k for k = -16..15 in f32, computed once on the CPU so
+    that every device uses the same values (pow differs in its last bit
+    between the CPU and CUDA libraries)."""
+    k = torch.arange(_POW_MIN, 16, dtype=torch.float32)
+    return torch.pow(torch.tensor(SCALE_FACTOR, dtype=torch.float32), k).to(device)
+
+
+def scale_pow(k: torch.Tensor) -> torch.Tensor:
+    """SCALE_FACTOR ** k for integer exponents -16 <= k < 16."""
+    return _scale_powers(k.device)[k.long() - _POW_MIN]
+
+
 def pyramid_shapes(h: int, w: int, n_levels: int = N_LEVELS, scale: float = SCALE_FACTOR):
     """Static per-level (H, W) list, matching ComputePyramid's rounding."""
     shapes = []
@@ -111,3 +128,31 @@ def gaussian_blur(img: torch.Tensor, ksize: int = 7, sigma: float = 2.0) -> torc
 
 def gaussian_blur7(img: torch.Tensor) -> torch.Tensor:
     return gaussian_blur(img, ksize=7, sigma=2.0)
+
+
+def remap_bilinear(img: torch.Tensor, map_x: torch.Tensor, map_y: torch.Tensor) -> torch.Tensor:
+    """cv::remap with bilinear interpolation; out-of-bounds reads give 0.
+
+    map_x/map_y give, for each destination pixel, the source coordinates
+    (stereo rectification with maps precomputed on the host,
+    `utils.rectify`). The integer corner is `floor` then int32, as in the
+    reference."""
+    h, w = img.shape[-2], img.shape[-1]
+    x0 = torch.floor(map_x)
+    y0 = torch.floor(map_y)
+    wx = map_x - x0
+    wy = map_y - y0
+    x0i = x0.to(torch.int32)
+    y0i = y0.to(torch.int32)
+
+    def sample(yi, xi):
+        inb = (yi >= 0) & (yi < h) & (xi >= 0) & (xi < w)
+        v = img[yi.clamp(0, h - 1).long(), xi.clamp(0, w - 1).long()]
+        return torch.where(inb, v, torch.zeros_like(v))
+
+    return (
+        sample(y0i, x0i) * (1 - wx) * (1 - wy)
+        + sample(y0i, x0i + 1) * wx * (1 - wy)
+        + sample(y0i + 1, x0i) * (1 - wx) * wy
+        + sample(y0i + 1, x0i + 1) * wx * wy
+    )

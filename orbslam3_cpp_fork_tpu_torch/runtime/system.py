@@ -1,13 +1,16 @@
 """System facade: the library's top-level entry point (port of
-runtime/system.py, monocular part).
+runtime/system.py, visual part).
 
-Owns the tracker; exposes the per-frame `track_monocular` call with input
-pre-processing (RGB -> gray, resize with the camera scaled to match), state
-queries, trajectory export in TUM/KITTI formats and `shutdown`, which
-flushes and stops the mapping and loop-closing workers and joins a global BA
-in flight. Loop closing is on by default, as in the reference. Stereo, RGB-D, inertial input, the
-viewers, Atlas save/load and localization mode raise `NotImplementedError`
-naming their ROADMAP item, as the tracker does.
+Owns the tracker; exposes the per-frame `track_monocular`, `track_stereo`
+and `track_rgbd` calls with input pre-processing (RGB -> gray, resize with
+the camera scaled to match; for an unrectified pinhole stereo rig,
+rectification by `remap_bilinear` on the tracker's device with maps
+computed once on the host), state queries, trajectory export in TUM/KITTI
+formats and `shutdown`, which flushes and stops the mapping and
+loop-closing workers and joins a global BA in flight. Loop closing is on by
+default, as in the reference. Inertial input, the viewers and Atlas
+save/load raise `NotImplementedError` naming their ROADMAP item, as the
+tracker does.
 """
 
 from __future__ import annotations
@@ -18,7 +21,8 @@ import time
 import numpy as np
 import torch
 
-from ..ops.image import resize_bilinear
+from ..ops.camera import Camera
+from ..ops.image import remap_bilinear, resize_bilinear
 from ..ops.orb import OrbParams
 from ..utils import timers as timers_mod
 from ..utils.settings import Settings, load_settings
@@ -32,8 +36,13 @@ def _not_ported(what: str, item: str):
     return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
 
 
+def _K(c: Camera) -> np.ndarray:
+    return np.array([[c.fx, 0.0, c.cx], [0.0, c.fy, c.cy], [0.0, 0.0, 1.0]])
+
+
 class System:
-    """System(settings, sensor) -> track_monocular(...) -> shutdown().
+    """System(settings, sensor) -> track_monocular / track_stereo /
+    track_rgbd(...) -> shutdown().
 
     `settings` is a Settings object or a path to a "File.version 1.0" YAML
     (the reference's per-dataset configs). The tracker runs on the card
@@ -52,8 +61,8 @@ class System:
     ):
         if isinstance(settings, str):
             settings = load_settings(settings)
-        if sensor != Sensor.MONOCULAR:
-            raise _not_ported(f"sensor {sensor.name}", "A13" if sensor.name.startswith("IMU") else "A11")
+        if sensor.name.startswith("IMU"):
+            raise _not_ported(f"sensor {sensor.name}", "A13")
         if use_viewer or live_viewer:
             raise _not_ported("the viewers", "A15")
         if load_atlas or settings.load_atlas or settings.save_atlas:
@@ -69,6 +78,45 @@ class System:
         cam = s.camera
         if self._resize:
             cam = cam.scaled(self._scale_x, self._scale_y)
+        cam2 = None
+        if s.camera2 is not None:
+            cam2 = s.camera2.scaled(self._scale_x, self._scale_y) if self._resize else s.camera2
+        # An unrectified pinhole stereo rig: rectification maps computed once
+        # and the rectified linear intrinsics (Settings::
+        # precomputeRectificationMaps); images are remapped per frame in
+        # track_stereo.
+        self._rect = None
+        self._rect_maps = None
+        if sensor == Sensor.STEREO and s.left_rect is not None and s.right_rect is not None:
+            self._rect = self._legacy_rectification(width, height)
+        elif sensor == Sensor.STEREO and cam2 is not None and s.camera_type == "PinHole":
+            from ..utils.rectify import stereo_rectify
+
+            self._rect = stereo_rectify(
+                _K(cam), np.asarray(cam.dist, np.float64), _K(cam2), np.asarray(cam2.dist, np.float64),
+                np.asarray(s.Tlr, np.float64), (height, width),
+            )
+            K_new = self._rect.K_new
+            cam = Camera.pinhole(K_new[0, 0], K_new[1, 1], K_new[0, 2], K_new[1, 2])
+        bf = (s.bf or 0.0) * self._scale_x
+        if self._rect is not None:
+            bf = self._rect.bf
+        # An unrectified fisheye rig (TUM-VI): Camera2 + Stereo.T_c1_c2
+        # (left-from-right). The tracker takes T_rl, its inverse, and bf from
+        # the baseline when the settings give none.
+        fisheye_kw = {}
+        if sensor == Sensor.STEREO and cam2 is not None and s.camera_type == "KannalaBrandt8":
+            T12 = np.asarray(s.Tlr, np.float64)  # x_l = R12 x_r + t12
+            R_rl = T12[:3, :3].T
+            t_rl = -R_rl @ T12[:3, 3]
+            if not bf:
+                bf = float(np.linalg.norm(T12[:3, 3])) * cam.fx
+            fisheye_kw = dict(
+                camera2=cam2, R_rl=R_rl.astype(np.float32), t_rl=t_rl.astype(np.float32),
+                lapping_l=tuple(s.lapping1 or (0.0, 1e9)), lapping_r=tuple(s.lapping2 or (0.0, 1e9)),
+            )
+        # mThDepth = bf * ThDepth / fx.
+        th_depth = bf * s.stereo_th_depth / cam.fx if s.stereo_th_depth and bf else 0.0
         cfg = TrackerConfig(
             camera=cam,
             width=width,
@@ -81,18 +129,41 @@ class System:
                 th_fast_high=float(s.ini_th_fast),
                 th_fast_low=float(s.min_th_fast),
             ),
-            bf=(s.bf or 0.0) * self._scale_x,
+            bf=bf,
+            th_depth=th_depth,
+            depth_factor=1.0 / s.depth_map_factor if s.depth_map_factor else 1.0,
             kf_max_interval=int(round(s.fps)) if s.fps else 30,
             async_mapping=async_mapping,
             enable_loop_closing=enable_loop_closing,
+            **fisheye_kw,
         )
         self.tracker = Tracker(cfg, device)
         self.timers = timers_mod.StageTimers()
         self._shutdown = False
         self._last_big_change = 0
 
+    def _legacy_rectification(self, width: int, height: int):
+        """The pre-1.0 LEFT./RIGHT. K, D, R, P blocks: Camera.* already holds
+        the rectified intrinsics; the maps come from the blocks."""
+        from ..utils.rectify import StereoRectification, init_undistort_rectify_map
+
+        s = self.settings
+        S = np.diag([self._scale_x, self._scale_y, 1.0])
+        lr, rr = s.left_rect, s.right_rect
+        P1 = S @ np.asarray(lr["P"], np.float64)
+        P2 = S @ np.asarray(rr["P"], np.float64)
+        m1 = init_undistort_rectify_map(S @ np.asarray(lr["K"], np.float64), lr["D"], np.asarray(lr["R"], np.float64),
+                                        P1[:3, :3], (height, width))
+        m2 = init_undistort_rectify_map(S @ np.asarray(rr["K"], np.float64), rr["D"], np.asarray(rr["R"], np.float64),
+                                        P2[:3, :3], (height, width))
+        bf = (s.bf or 0.0) * self._scale_x or -float(P2[0, 3])
+        return StereoRectification(
+            R1=np.asarray(lr["R"], np.float64), R2=np.asarray(rr["R"], np.float64), K_new=P1[:3, :3],
+            baseline=bf / float(P1[0, 0]), bf=bf, map1_x=m1[0], map1_y=m1[1], map2_x=m2[0], map2_y=m2[1],
+        )
+
     # ------------------------------------------------------------------
-    # Per-frame entry point (System::TrackMonocular)
+    # Per-frame entry points (System::TrackMonocular / Stereo / RGBD)
     # ------------------------------------------------------------------
 
     def _preprocess(self, img: np.ndarray) -> np.ndarray:
@@ -105,18 +176,53 @@ class System:
         return np.ascontiguousarray(img, np.float32)
 
     def track_monocular(self, img: np.ndarray, timestamp: float) -> np.ndarray | None:
-        if self._shutdown:
-            raise RuntimeError("System was shut down")
+        self._check_sensor(Sensor.MONOCULAR)
         t0 = time.perf_counter()
         T = self.tracker.track(self._preprocess(img), timestamp)
         self.timers.add("track_total", time.perf_counter() - t0)
         return T
 
-    def track_stereo(self, *args, **kw):
-        raise _not_ported("stereo tracking", "A11")
+    def _check_sensor(self, sensor: Sensor) -> None:
+        if self._shutdown:
+            raise RuntimeError("System was shut down")
+        if self.sensor != sensor:
+            raise ValueError(f"a {self.sensor.name} System takes no {sensor.name} frames")
 
-    def track_rgbd(self, *args, **kw):
-        raise _not_ported("RGB-D tracking", "A11")
+    def _remap_pair(self, img_l: np.ndarray, img_r: np.ndarray):
+        """Stereo rectification on the tracker's device (the cv::remap calls
+        of System::TrackStereo); the maps are uploaded once."""
+        dev = self.tracker.device
+        if self._rect_maps is None:
+            r = self._rect
+            self._rect_maps = tuple(
+                torch.from_numpy(np.ascontiguousarray(m, np.float32)).to(dev)
+                for m in (r.map1_x, r.map1_y, r.map2_x, r.map2_y)
+            )
+        m1x, m1y, m2x, m2y = self._rect_maps
+        out_l = remap_bilinear(torch.from_numpy(img_l).to(dev), m1x, m1y)
+        out_r = remap_bilinear(torch.from_numpy(img_r).to(dev), m2x, m2y)
+        return out_l.cpu().numpy(), out_r.cpu().numpy()
+
+    def track_stereo(self, img_left: np.ndarray, img_right: np.ndarray, timestamp: float) -> np.ndarray | None:
+        self._check_sensor(Sensor.STEREO)
+        t0 = time.perf_counter()
+        img_l, img_r = self._preprocess(img_left), self._preprocess(img_right)
+        if self._rect is not None:
+            img_l, img_r = self._remap_pair(img_l, img_r)
+        T = self.tracker.track_stereo(img_l, img_r, timestamp)
+        self.timers.add("track_total", time.perf_counter() - t0)
+        return T
+
+    def track_rgbd(self, img: np.ndarray, depth: np.ndarray, timestamp: float) -> np.ndarray | None:
+        self._check_sensor(Sensor.RGBD)
+        t0 = time.perf_counter()
+        depth = np.asarray(depth, np.float32)
+        if self._resize is not None and depth.shape != self._resize:
+            dev = self.tracker.device
+            depth = resize_bilinear(torch.from_numpy(np.ascontiguousarray(depth)).to(dev), self._resize).cpu().numpy()
+        T = self.tracker.track_rgbd(self._preprocess(img), depth, timestamp)
+        self.timers.add("track_total", time.perf_counter() - t0)
+        return T
 
     # ------------------------------------------------------------------
     # State (GetTrackingState, MapChanged, GetTracked*)

@@ -7,9 +7,9 @@ frame -> extract_orb -> [two-view init | fused three-stage track] ->
 keyframe policy -> (insert KF -> triangulate new landmarks -> fuse
 duplicates -> cull -> window BA -> cull keyframes)
 
-Ported: the monocular runtime with place recognition, in both of the
-reference's modes, at the reference's defaults (loop closing and global BA
-on). `async_mapping=True` (the default) runs the mapping step on a
+Ported: the monocular, stereo and RGB-D runtime with place recognition, in
+both of the reference's modes, at the reference's defaults (loop closing and
+global BA on). `async_mapping=True` (the default) runs the mapping step on a
 background thread (`runtime/mapping_worker.py`), the loop step on a second
 one (`LoopWorker`) and a global BA after a loop closure on a third, and
 resolves `pipeline_lag=2`: on an established, comfortably tracked map each
@@ -22,10 +22,14 @@ frame the fused path declines is retried by the split-phase path
 OK -> RECENTLY_LOST -> LOST ladder, where frames are relocalized through the
 keyframe database (`_relocalize`). Corrections made on another thread reach
 the live frame through `MapState.big_change_idx` (`_rebase_after_map_change`).
-Stereo/RGB-D and inertial input raise `NotImplementedError` at construction,
-naming the ROADMAP item. The Atlas holds one map: where the reference spawns
-a new one after `reloc_patience` failed relocalizations (A12), the port
-stays LOST and counts the frame in `n_reloc_patience_exceeded`.
+Stereo and RGB-D frames (`track_stereo`, `track_rgbd`) carry a right
+coordinate and a depth per feature, initialize the map from one frame, take
+the split-phase path with stereo rows in the pose optimization, seed close
+points at every keyframe and close loops in SE(3). Inertial input raises
+`NotImplementedError` at construction, naming the ROADMAP item. The Atlas
+holds one map: where the reference spawns a new one after `reloc_patience`
+failed relocalizations (A12), the port stays LOST and counts the frame in
+`n_reloc_patience_exceeded`.
 
 The host side is numpy, as in the reference; device work runs on
 `Tracker.device` in f32 (window BA included), each stage fetches its
@@ -48,7 +52,6 @@ from __future__ import annotations
 import collections
 import dataclasses
 import enum
-import functools
 import logging
 import threading
 import time
@@ -59,9 +62,10 @@ import torch
 from ..device import block_nbytes, fetch_block, fetch_block_async, get_device
 from ..models.atlas import Atlas
 from ..models.map_state import LEVEL_SIGMA2, MapConfig, MapState
-from ..ops import geometry, matching, orb, ransac
+from ..ops import geometry, matching, orb, ransac, stereo
 from ..ops.camera import Camera, true_div, undistort_points
 from ..ops.image import N_LEVELS, SCALE_FACTOR
+from ..ops.image import scale_pow as _scale_pow
 from ..utils import lie
 from ..utils.timers import StageTimers
 
@@ -69,22 +73,6 @@ log = logging.getLogger("orbslam3_torch.tracker")
 
 # log(1.2) evaluated in f32, as the reference's jnp.log(SCALE_FACTOR).
 _LOG_SCALE = torch.log(torch.tensor(SCALE_FACTOR, dtype=torch.float32)).item()
-
-_POW_MIN = -16  # lowest exponent of the 1.2^k table
-
-
-@functools.lru_cache(maxsize=None)
-def _scale_powers(device: torch.device) -> torch.Tensor:
-    """SCALE_FACTOR ** k for k = -16..15 in f32, computed once on the CPU so
-    that every device uses the same values (pow differs in its last bit
-    between the CPU and CUDA libraries)."""
-    k = torch.arange(_POW_MIN, 16, dtype=torch.float32)
-    return torch.pow(torch.tensor(SCALE_FACTOR, dtype=torch.float32), k).to(device)
-
-
-def _scale_pow(k: torch.Tensor) -> torch.Tensor:
-    """SCALE_FACTOR ** k for integer exponents -16 <= k < 16."""
-    return _scale_powers(k.device)[k.long() - _POW_MIN]
 
 
 def informed_obs_drop(o_lm: np.ndarray, cap: int, rng: np.random.Generator, keep_per_lm: int = 4) -> np.ndarray:
@@ -143,7 +131,22 @@ class TrackerConfig:
     sensor: Sensor = Sensor.MONOCULAR
     imu: object | None = None
     orb: orb.OrbParams = dataclasses.field(default_factory=orb.OrbParams)
+    # Stereo / RGB-D: bf = baseline * fx (mbf); the close/far point
+    # threshold mThDepth = bf * ThDepth / fx; the RGB-D depth map's factor
+    # to meters.
     bf: float = 0.0
+    th_depth: float = 0.0
+    depth_factor: float = 1.0
+    # Unrectified (fisheye) stereo: the right camera, left -> right
+    # extrinsics (mTrl) and the lapping areas. With camera2 set,
+    # track_stereo matches descriptors in the lapping areas and
+    # triangulates instead of the rectified row-band match.
+    camera2: Camera | None = None
+    R_rl: np.ndarray | None = None
+    t_rl: np.ndarray | None = None
+    lapping_l: tuple = (0.0, 1e9)
+    lapping_r: tuple = (0.0, 1e9)
+    stereo_init_min_features: int = 500  # StereoInitialization
     enable_loop_closing: bool = True
     # Run the mapping step on a background thread so per-frame track latency
     # stays flat across keyframe insertions. Tracking reads a bounded-stale
@@ -666,15 +669,14 @@ class DeviceKFStore:
 
 
 class Tracker:
-    """Monocular SLAM front end + local mapping (System::TrackMonocular +
-    Tracking::Track + LocalMapping::Run), with the mapping step on the
-    caller's thread or on a `MappingWorker`."""
+    """Visual SLAM front end + local mapping (System::TrackMonocular /
+    TrackStereo / TrackRGBD + Tracking::Track + LocalMapping::Run), with the
+    mapping step on the caller's thread or on a `MappingWorker`."""
 
     def __init__(self, cfg: TrackerConfig, device: str | torch.device = "cuda"):
         assert cfg.camera is not None
-        if cfg.sensor != Sensor.MONOCULAR:
-            item = "A13" if cfg.sensor.name.startswith("IMU") else "A11"
-            raise NotImplementedError(f"sensor {cfg.sensor.name} is not ported yet (ROADMAP {item})")
+        if cfg.sensor.name.startswith("IMU"):
+            raise NotImplementedError(f"sensor {cfg.sensor.name} is not ported yet (ROADMAP A13)")
         if cfg.imu is not None:
             raise NotImplementedError("inertial tracking is not ported yet (ROADMAP A13)")
         self.cfg = cfg
@@ -754,7 +756,8 @@ class Tracker:
         self.loop_closer = None
         if cfg.enable_loop_closing:
             self.loop_closer = LoopCloser(
-                self.atlas, self.kfdb, self.fx, self.fy, self.cx, self.cy, self.device, LoopConfig(),
+                self.atlas, self.kfdb, self.fx, self.fy, self.cx, self.cy, self.device,
+                LoopConfig(fix_scale=cfg.sensor != Sensor.MONOCULAR),
             )
             self.loop_closer.global_ba_hook = self._global_ba_after_loop
             self.loop_closer.lock = self.map_lock
@@ -822,12 +825,17 @@ class Tracker:
             depth=np.full(n, -1.0, np.float32),
         )
 
-    def _upload_image(self, frame: FrameData) -> torch.Tensor:
-        """The frame's raw uint8 image on the tracker's device."""
-        host = torch.from_numpy(np.ascontiguousarray(frame.img_u8))
+    def _upload(self, img: np.ndarray) -> torch.Tensor:
+        """A host image on the tracker's device (through pinned memory on a
+        card)."""
+        host = torch.from_numpy(np.ascontiguousarray(img))
         if self.device.type == "cuda":
             host = host.pin_memory().to(self.device, non_blocking=True)
         return host
+
+    def _upload_image(self, frame: FrameData) -> torch.Tensor:
+        """The frame's raw uint8 image on the tracker's device."""
+        return self._upload(frame.img_u8)
 
     def _ensure_feats(self, frame: FrameData):
         """Dispatch extraction + undistortion; results stay on the device
@@ -849,6 +857,63 @@ class Tracker:
         frame = self._extract(img, timestamp)
         return self._process(frame)
 
+    def _upload_float(self, img: np.ndarray) -> torch.Tensor:
+        """A host image as f32 on the tracker's device, values as given (the
+        reference's stereo and RGB-D entry points take jnp.float32 of the
+        input)."""
+        return self._upload(np.asarray(img, np.float32))
+
+    def _depth_frame(self, feats, xy_dev, ur, depth, timestamp: float) -> FrameData:
+        n = self.cfg.orb.n_features
+        return FrameData(
+            frame_id=self.frame_id, timestamp=timestamp, lm_idx=np.full(n, -1, np.int32),
+            ur=ur.astype(np.float32), depth=depth.astype(np.float32), feats_dev=feats, xy_dev=xy_dev,
+        )
+
+    def track_stereo(self, img_l: np.ndarray, img_r: np.ndarray, timestamp: float) -> np.ndarray | None:
+        """Stereo pair (System::TrackStereo): ORB on both images (one
+        describe launch each), then the rectified row-band match with SAD
+        refinement, or, with `camera2`, the fisheye lapping-area match and
+        triangulation. Returns 4x4 Tcw or None."""
+        cfg = self.cfg
+        with self.timers.span("orb_extract"):
+            jl, jr = self._upload_float(img_l), self._upload_float(img_r)
+            fl = orb.extract_orb(jl, cfg.orb)
+            fr = orb.extract_orb(jr, cfg.orb)
+        with self.timers.span("stereo_match"):
+            if cfg.camera2 is not None:
+                depth, _, ok = stereo.match_stereo_fisheye(
+                    fl.desc_i8, fl.xy, fl.level, fl.valid, fr.desc_i8, fr.xy, fr.level, fr.valid,
+                    self.cam, cfg.camera2, self._put(cfg.R_rl, np.float32), self._put(cfg.t_rl, np.float32),
+                    float(cfg.lapping_l[0]), float(cfg.lapping_r[1]),
+                )
+                xy_dev = undistort_points(self.cam, fl.xy)
+                xy_ud, d, ok = fetch_block((xy_dev, depth, ok))
+                ur = np.where(ok, xy_ud[:, 0] - cfg.bf / np.maximum(d, 1e-6), -1.0)
+            else:
+                # Rectified input: the keypoints are already undistorted.
+                ur, depth, _ = stereo.compute_stereo_matches(
+                    jl, jr, fl.desc_i8, fl.xy, fl.level, fl.valid, fr.desc_i8, fr.xy, fr.level, fr.valid,
+                    cfg.bf, cfg.bf / self.fx,
+                )
+                xy_dev = fl.xy
+                ur, d = fetch_block((ur, depth))
+        return self._process(self._depth_frame(fl, xy_dev, ur, d, timestamp))
+
+    def track_rgbd(self, img: np.ndarray, depth_map: np.ndarray, timestamp: float) -> np.ndarray | None:
+        """RGB-D frame (System::TrackRGBD): the depth map sampled at the raw
+        keypoints gives each feature its depth and a virtual right
+        coordinate against its undistorted u. Returns 4x4 Tcw or None."""
+        cfg = self.cfg
+        with self.timers.span("orb_extract"):
+            feats = orb.extract_orb(self._upload_float(img), cfg.orb)
+        xy_dev = undistort_points(self.cam, feats.xy)
+        _, d, ok = stereo.depth_to_stereo(self._upload_float(depth_map), feats.xy, cfg.bf, cfg.depth_factor)
+        xy_ud, d, ok = fetch_block((xy_dev, d, ok))
+        # ur against the undistorted u (ComputeStereoFromRGBD).
+        ur = np.where(ok, xy_ud[:, 0] - cfg.bf / np.maximum(d, 1e-6), -1.0)
+        return self._process(self._depth_frame(feats, xy_dev, ur, d, timestamp))
+
     def _process(self, frame: FrameData) -> np.ndarray | None:
         # Bounded-staleness wait (see TrackerConfig.map_wait_budget_ms):
         # give the in-flight mapping step a bounded chance to land before
@@ -868,7 +933,10 @@ class Tracker:
             return T
         self._ensure_feats(frame)
         if self.state in (TrackState.NO_IMAGES_YET, TrackState.NOT_INITIALIZED):
-            self._initialize(frame)
+            if self.cfg.sensor == Sensor.MONOCULAR:
+                self._initialize(frame)
+            else:
+                self._initialize_from_depth(frame)
         elif self.state == TrackState.RECENTLY_LOST:
             self._recently_lost_step(frame)
         elif self.state == TrackState.LOST:
@@ -980,6 +1048,62 @@ class Tracker:
         log.info("map initialized: %d landmarks from %d matches", len(gi), len(idx))
 
     # ------------------------------------------------------------------
+    # Stereo / RGB-D initialization (StereoInitialization): depth gives
+    # metric structure from one frame, which becomes KF 0 at the origin.
+    # ------------------------------------------------------------------
+
+    def _unproject_depth(self, frame: FrameData, feats: np.ndarray) -> np.ndarray:
+        """Back-project features with known depth to world points."""
+        z = frame.depth[feats]
+        x = (frame.xy[feats, 0] - self.cx) / self.fx * z
+        y = (frame.xy[feats, 1] - self.cy) / self.fy * z
+        pc = np.stack([x, y, z], 1).astype(np.float32)
+        Rwc = frame.R.T
+        return pc @ Rwc.T + (-Rwc @ frame.t)
+
+    def _initialize_from_depth(self, frame: FrameData):
+        if int(frame.valid.sum()) < self.cfg.stereo_init_min_features:
+            self.last = frame
+            self.state = TrackState.NOT_INITIALIZED
+            return
+        frame.R = np.eye(3, dtype=np.float32)
+        frame.t = np.zeros(3, np.float32)
+        feats = np.nonzero(frame.valid & (frame.depth > 0))[0]
+        if len(feats) < 100:
+            frame.R = frame.t = None
+            self.last = frame
+            return
+        m = self.map
+        X = self._unproject_depth(frame, feats)
+        dist = np.linalg.norm(X, axis=1)  # the camera sits at the origin
+        with self.map_lock:
+            lm_ids = m.add_landmarks(
+                pos=X,
+                desc_packed=frame.desc[feats],
+                desc_i8=frame.desc_i8[feats],
+                first_kf=0,
+                level=frame.level[feats],
+                normal=(X / np.maximum(dist[:, None], 1e-9)).astype(np.float32),
+                min_dist=(dist * 0.5).astype(np.float32),
+                max_dist=(dist * 2.0).astype(np.float32),
+            )
+            frame.lm_idx[feats] = lm_ids
+            k = m.add_keyframe(
+                frame.R, frame.t, frame.xy, frame.level, frame.angle, frame.desc,
+                frame.valid, frame.lm_idx, frame.timestamp, frame.frame_id,
+                ur=frame.ur, depth=frame.depth,
+            )
+            m.update_landmark_stats(lm_ids)
+        self.kfdb.add(k, frame.desc_i8, frame.valid)
+        self.ref_kf = k
+        self.last_kf_frame_id = frame.frame_id
+        self.velocity = None
+        self.state = TrackState.OK
+        self.n_kf_inserted = 1
+        self.last = frame
+        log.info("stereo/RGB-D map initialized: %d landmarks", len(feats))
+
+    # ------------------------------------------------------------------
     # Frame tracking
     # ------------------------------------------------------------------
 
@@ -1012,7 +1136,9 @@ class Tracker:
         confidently track runs the split-phase path."""
         self._check_replaced_in_last_frame()
         self.n_sync_frames += 1
-        if self.last is not None and self.last.R is not None:
+        # Stereo and RGB-D frames take the split-phase path: the fused
+        # program has no stereo rows.
+        if self.cfg.sensor == Sensor.MONOCULAR and self.last is not None and self.last.R is not None:
             with self.timers.span("track_fused"):
                 if self._track_frame_fused(frame):
                     return
@@ -1213,7 +1339,7 @@ class Tracker:
         return self.cfg.min_localmap_inliers
 
     def _pipeline_active(self) -> bool:
-        if self.pipeline_lag == 0:
+        if self.pipeline_lag == 0 or self.cfg.sensor != Sensor.MONOCULAR:
             return False
         if self._pipe:
             return True  # already engaged; retirement decides exits
@@ -1533,10 +1659,13 @@ class Tracker:
         ).astype(np.float32)
         sig2 = np.concatenate([self._feat_sigma2(frame.level[bound]), np.ones(pad, np.float32)])
         valid = np.concatenate([np.ones(len(bound), bool), np.zeros(pad, bool)])
+        # Stereo rows: centred right-u of the features with a stereo match.
+        ur_c = np.concatenate([frame.ur[bound] - self.cx, np.zeros(pad, np.float32)]).astype(np.float32)
+        is_st = np.concatenate([frame.ur[bound] >= 0, np.zeros(pad, bool)])
         put = self._put
         res = pose_opt.pose_optimization(
             put(frame.R, np.float32), put(frame.t, np.float32), put(Xw), put(uv_c), put(sig2), put(valid),
-            self.fx, self.fy,
+            self.fx, self.fy, ur=put(ur_c), bf=float(np.float32(self.cfg.bf)), is_stereo=put(is_st),
         )
         frame.R, frame.t, inl = fetch_block((res.R, res.t, res.inliers))
         inl = inl[: len(bound)]
@@ -1901,6 +2030,11 @@ class Tracker:
             self.ref_kf = k
             self.n_kf_inserted += 1
             self._reanchor_trajectory_records(k)
+            # Stereo/RGB-D: seed close points from depth (CreateNewKeyFrame)
+            # on the track thread, so that the live frame sees its new
+            # bindings.
+            if self.cfg.sensor != Sensor.MONOCULAR:
+                self._seed_depth_points(frame, k)
         if self.worker is not None:
             self.worker.submit(k, {"map_ref": m})
             if m.n_keyframes() < self.cfg.young_map_kfs:
@@ -1910,6 +2044,37 @@ class Tracker:
                 self.worker.flush()
         else:
             self._mapping_step(k, map_ref=m, frame=frame)
+
+    def _seed_depth_points(self, frame: FrameData, k: int) -> list[int]:
+        """Landmarks for the unbound features of a new stereo/RGB-D keyframe
+        with a depth: every close one (depth < th_depth), and at least the
+        100 nearest (CreateNewKeyFrame). Call under the map lock."""
+        m = self.map
+        cand = np.nonzero(frame.valid & (frame.depth > 0) & (frame.lm_idx < 0))[0]
+        if len(cand) == 0:
+            return []
+        order = cand[np.argsort(frame.depth[cand])]
+        close = frame.depth[order] < max(self.cfg.th_depth, 0.0)
+        take = order[: max(int(close.sum()), min(100, len(order)))]
+        X = self._unproject_depth(frame, take)
+        dirs = X - (-frame.R.T @ frame.t)
+        dist = np.linalg.norm(dirs, axis=1)
+        try:
+            ids = m.add_landmarks(
+                pos=X,
+                desc_packed=frame.desc[take],
+                desc_i8=frame.desc_i8[take],
+                first_kf=k,
+                level=frame.level[take],
+                normal=(dirs / np.maximum(dist[:, None], 1e-9)).astype(np.float32),
+                min_dist=(dist * 0.5).astype(np.float32),
+                max_dist=(dist * 2.0).astype(np.float32),
+            )
+        except RuntimeError:  # landmark capacity exhausted
+            return []
+        frame.lm_idx[take] = ids
+        m.add_observation(k, take, ids)
+        return [int(i) for i in ids]
 
     def _mapping_step_batch(self, ks: list[int], map_ref: MapState, frame: FrameData | None = None):
         """Catch-up processing of a drained keyframe queue: older keyframes

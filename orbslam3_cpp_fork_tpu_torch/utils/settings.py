@@ -5,9 +5,7 @@ Parses the same "File.version 1.0" YAML files the reference ships per
 dataset. The OpenCV FileStorage `%YAML:1.0` directive is stripped and the
 flat dotted keys are parsed with PyYAML, which is imported only inside the
 function that reads a file: a `Settings` object made in code needs no YAML
-package. Unknown camera types and missing required keys raise. The
-Kannala-Brandt-8 camera model is not ported yet (ROADMAP A11) and is
-refused by name.
+package. Unknown camera types and missing required keys raise.
 """
 
 from __future__ import annotations
@@ -89,7 +87,13 @@ def _camera_from(d: dict, prefix: str, cam_type: str) -> Camera:
         ]
         return Camera.pinhole(fx, fy, cx, cy, dist=dist)
     elif cam_type == "KannalaBrandt8":
-        raise NotImplementedError("camera model KannalaBrandt8 is not ported yet (ROADMAP A11)")
+        return Camera.kb8(
+            fx, fy, cx, cy,
+            k1=float(d.get(f"{prefix}.k1", 0.0)),
+            k2=float(d.get(f"{prefix}.k2", 0.0)),
+            k3=float(d.get(f"{prefix}.k3", 0.0)),
+            k4=float(d.get(f"{prefix}.k4", 0.0)),
+        )
     raise ValueError(f"unknown camera type: {cam_type}")
 
 

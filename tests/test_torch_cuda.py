@@ -315,3 +315,40 @@ def test_pipelined_frame_chain_on_the_card(dev):
     ate_g = ate_rmse(ts_g, T_g[:, :3, 3], stamps, ts).rmse_scaled
     ate_c = ate_rmse(ts_c, T_c[:, :3, 3], stamps, ts).rmse_scaled
     assert ate_g <= 2.0 * ate_c + 0.02, f"tolerance: card {ate_g} m against 2 x CPU {ate_c} m + 0.02 m"
+
+
+def test_stereo_match_on_card_matches_cpu(dev):
+    """The rectified stereo match (PyTorch ops, no hand kernel) on the card
+    against the CPU on one pair of the stereo phase's scene: mask exact, ur
+    and depth 1e-4 relative; two describe launches, one an image."""
+    from orbslam3_cpp_fork_tpu_torch.ops import stereo
+
+    scene = synthetic.make_ring_scene(seed=13, n_points=900, size_range=(9, 15), width=640, height=480)
+    Rs, ts = synthetic.circle_trajectory(n_frames=220, radius=2.5, total_angle=2.3 * np.pi)
+    imgs = [synthetic.to_u8(synthetic.render_frame(scene, Rs[0], ts[0])),
+            synthetic.to_u8(synthetic.render_frame(scene, *synthetic.stereo_right_pose(Rs[0], ts[0], 0.2)))]
+    bf = 0.2 * float(scene.K[0, 0])
+    out = {}
+    counter = patches.describe_counter(dev)
+    c0 = int(counter)
+    for d in (torch.device("cpu"), dev):
+        il, ir = (torch.from_numpy(x.astype(np.float32)).to(d) for x in imgs)
+        fl, fr = orb.extract_orb(il, orb.OrbParams(n_features=1000)), orb.extract_orb(ir, orb.OrbParams(n_features=1000))
+        res = stereo.compute_stereo_matches(il, ir, fl.desc_i8, fl.xy, fl.level, fl.valid, fr.desc_i8, fr.xy, fr.level,
+                                            fr.valid, bf, 0.2)
+        out[d.type] = [x.cpu().numpy() for x in res]
+    assert int(counter) - c0 == 2
+    (ur_c, d_c, ok_c), (ur_g, d_g, ok_g) = out["cpu"], out["cuda"]
+    assert ok_c.sum() > 100 and np.array_equal(ok_g, ok_c), "mask exact"
+    np.testing.assert_allclose(ur_g, ur_c, rtol=1e-4)
+    np.testing.assert_allclose(d_g, d_c, rtol=1e-4)
+
+
+def test_remap_on_card_matches_cpu(dev):
+    rng = np.random.default_rng(0)
+    img = rng.uniform(0, 255, (480, 752)).astype(np.float32)
+    mx = rng.uniform(-3, 755, (480, 752)).astype(np.float32)
+    my = rng.uniform(-3, 483, (480, 752)).astype(np.float32)
+    ref = image.remap_bilinear(*(torch.from_numpy(a) for a in (img, mx, my))).numpy()
+    got = image.remap_bilinear(*(torch.from_numpy(a).to(dev) for a in (img, mx, my))).cpu().numpy()
+    assert np.abs(got - ref).max() <= 1e-4 * 255, "tolerance: 1e-4 of the gray range"

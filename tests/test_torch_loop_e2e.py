@@ -94,20 +94,31 @@ def _aligned_error(trk, dead, ts_gt, n_pre, c_est, target):
     return chip_smoke.aligned_centre_error(ts_est, Twc, ts_gt, n_pre, dead, c_est, target)[0]
 
 
-def revisit_run(mode):
-    """The revisit sweep, in the reference's default configuration with
-    `async_mapping` as `mode` says; asserts every gate."""
+def sweep_tracker(mode):
+    """The revisit sweep's scene, ground truth and tracker (the reference's
+    default configuration with `async_mapping` as `mode` says), and the ids
+    of the frames it records while not OK."""
     scene = synthetic.make_ring_scene(seed=7, n_points=900, size_range=(5, 9), width=320, height=240)
     step = np.radians(SWEEP_DEG)
     angles = np.concatenate([np.arange(SWEEP_OUT) * step, (SWEEP_OUT - np.arange(SWEEP_BACK)) * step])
     Rs, ts = _poses(angles)
     trk = _tracker(scene, orb=OrbParams(n_features=400), async_mapping=mode == "async", local_lm_cap=1024,
                    ba_lm_cap=1024, ba_obs_cap=8192, map_cfg=MapConfig(max_keyframes=48, max_landmarks=4096))
-    dead = chip_smoke.spy_dead_reckoned(trk)
-    n = len(angles)
+    return scene, Rs, ts, trk, chip_smoke.spy_dead_reckoned(trk)
+
+
+def track_sweep(trk, scene, Rs, ts):
+    """Track the sweep's frames; whether each gave a pose."""
+    return [trk.track(synthetic.to_u8(synthetic.render_frame(scene, R, t)), 0.05 * i) is not None
+            for i, (R, t) in enumerate(zip(Rs, ts))]
+
+
+def revisit_run(mode):
+    """The revisit sweep in the mode given; asserts every gate."""
+    scene, Rs, ts, trk, dead = sweep_tracker(mode)
+    n = len(Rs)
     try:
-        ok = [trk.track(synthetic.to_u8(synthetic.render_frame(scene, Rs[i], ts[i])), 0.05 * i) is not None
-              for i in range(n)]
+        ok = track_sweep(trk, scene, Rs, ts)
         ts_est, Twc = trk.export_trajectory()  # flushes the workers, re-raising their failures
         ate = ate_rmse(ts_est, Twc[:, :3, 3], np.arange(n) * 0.05, ts)
         lc = trk.loop_closer

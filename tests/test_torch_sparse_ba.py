@@ -108,3 +108,41 @@ def test_pcg_matches_the_reference(iters):
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5)
     if iters == 40:
         np.testing.assert_allclose(A @ got.numpy().reshape(-1), b.reshape(-1), atol=1e-3)
+
+
+def _stereo_problem(share=0.6, baseline=0.2):
+    """tests/test_optim.py's BA problem with stereo observations: a share of
+    the rows carry a right coordinate ur = u - bf/z (centered, with the same
+    0.15 px noise as u) from the ground-truth geometry, as a stereo map's
+    keyframes do."""
+    prob, R_gt, t_gt, X_gt = _make_ba_problem()
+    rng = np.random.default_rng(5)
+    fx = float(prob.fx)
+    bf = baseline * fx
+    kf, lm = np.asarray(prob.obs_kf), np.asarray(prob.obs_lm)
+    pc = np.einsum("nij,nj->ni", R_gt[kf], X_gt[lm]) + t_gt[kf]
+    stereo = rng.random(len(kf)) < share
+    uvr = np.asarray(prob.obs_uvr).copy()
+    uvr[:, 2] = np.where(stereo, uvr[:, 0] - bf / pc[:, 2] + rng.normal(0, 0.15, len(kf)), 0.0)
+    prob = dataclasses.replace(prob, obs_uvr=jnp.asarray(uvr.astype(np.float32)), obs_stereo=jnp.asarray(stereo),
+                               bf=jnp.float32(bf))
+    return prob, R_gt, t_gt, X_gt
+
+
+def test_sparse_ba_on_stereo_observations():
+    """The visual global BA on a map with stereo observations (the stereo
+    slice's loop correction runs it): port against the reference 1e-4 in R,
+    t and the cost (1e-3 in Xw), and against the port's local_ba, which
+    shares its residual model; the stereo rows make the problem metric."""
+    prob, R_gt, t_gt, X_gt = _stereo_problem()
+    assert np.asarray(prob.obs_stereo).mean() > 0.5
+    p = _port(prob)
+    res = tsb.sparse_ba(p, iters=12, gate_at=6, cg_iters=60)
+    _close(res, jsb.sparse_ba(prob, iters=12, gate_at=6, cg_iters=60))
+    res_d = local_ba(p, iters=12, gate_at=6)
+    for k in range(R_gt.shape[0]):
+        assert np.linalg.norm(tl.so3_log(res_d.R[k].T @ res.R[k]).numpy()) < 5e-3
+        np.testing.assert_allclose(res.t[k].numpy(), res_d.t[k].numpy(), atol=2e-2)
+        np.testing.assert_allclose(res.t[k].numpy(), t_gt[k], atol=2e-2)
+    err = np.linalg.norm(res.Xw.numpy() - X_gt, axis=1).mean()
+    assert err < 0.5 * np.linalg.norm(np.asarray(prob.Xw) - X_gt, axis=1).mean()

@@ -155,8 +155,8 @@ def test_settings_need_no_yaml_package_until_a_file_is_read(tmp_path, monkeypatc
         tsettings.load_settings(str(p))
     p.write_text(YAML.replace("PinHole", "KannalaBrandt8"))
     monkeypatch.delitem(sys.modules, "yaml")
-    with pytest.raises(NotImplementedError, match="A11"):
-        tsettings.load_settings(str(p))
+    kb8 = tsettings.load_settings(str(p)).camera
+    assert kb8.kind == "kb8" and kb8.dist[:2] == (float(np.float32(-0.28340811)), float(np.float32(0.07395907)))
 
 
 def _settings(w, h, camera=None, **kw):
@@ -203,12 +203,11 @@ def test_system_builds_the_tracker_configuration(tmp_path):
 @pytest.mark.parametrize(
     "kw,item",
     [
-        (dict(sensor=Sensor.STEREO), "A11"),
         (dict(sensor=Sensor.IMU_MONOCULAR), "A13"),
+        (dict(sensor=Sensor.IMU_STEREO), "A13"),
         (dict(use_viewer=True), "A15"),
         (dict(live_viewer=True), "A15"),
         (dict(load_atlas="atlas.npz"), "A12"),
-        (dict(sensor=Sensor.RGBD), "A11"),
     ],
 )
 def test_system_refuses_what_is_not_ported(kw, item):
@@ -218,8 +217,11 @@ def test_system_refuses_what_is_not_ported(kw, item):
 
 def test_system_refuses_unported_calls_and_defaults_to_the_card():
     system = System(_settings(320, 240), enable_loop_closing=False, async_mapping=False, device="cpu")
-    for call, item in ((system.track_stereo, "A11"), (system.track_rgbd, "A11"), (lambda: system.save_atlas("x"), "A12")):
-        with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(NotImplementedError, match="A12"):
+        system.save_atlas("x")
+    img = np.zeros((240, 320), np.float32)
+    for call in (lambda: system.track_stereo(img, img, 0.0), lambda: system.track_rgbd(img, img, 0.0)):
+        with pytest.raises(ValueError, match="MONOCULAR"):
             call()
     # Localization mode pauses keyframe insertion.
     system.activate_localization_mode()
@@ -299,3 +301,160 @@ def test_shutdown_reraises_a_failure_of_the_mapping_thread():
     with pytest.raises(RuntimeError, match="on purpose"):
         system.shutdown()
     assert not worker._thread.is_alive(), "the thread is stopped even though shutdown raised"
+
+
+# ------------------------------------------------------------- stereo, RGB-D
+
+
+def _stereo_scene():
+    return synthetic.make_scene(seed=5, n_points=1500, width=320, height=240, fx=400.0)
+
+
+@pytest.mark.parametrize("sensor,async_mapping", [(Sensor.STEREO, False), (Sensor.RGBD, False), (Sensor.STEREO, True)])
+def test_system_tracks_stereo_and_rgbd(sensor, async_mapping):
+    """STEREO and RGBD Systems (refused until A11) are built from settings
+    (bf, ThDepth, DepthMapFactor), track two frames through the facade and
+    shut down."""
+    scene = _stereo_scene()
+    Rs, ts = synthetic.smooth_trajectory(n_frames=2, step=0.12, yaw_rate=0.002)
+    s = _settings(320, 240, Camera.pinhole(400.0, 400.0, 160.0, 120.0), bf=80.0, stereo_th_depth=40.0,
+                  depth_map_factor=5000.0)
+    system = System(s, sensor, async_mapping=async_mapping, device="cpu")
+    trk = system.tracker
+    cfg = trk.cfg
+    assert cfg.sensor == sensor and cfg.bf == 80.0 and cfg.th_depth == 8.0 and cfg.depth_factor == 1.0 / 5000.0
+    cfg.stereo_init_min_features = 300
+    cfg.local_lm_cap = cfg.ba_lm_cap = 1024
+    cfg.ba_obs_cap = 8192
+    try:
+        for i in range(2):
+            img = synthetic.render_frame(scene, Rs[i], ts[i])
+            if sensor == Sensor.STEREO:
+                T = system.track_stereo(img, synthetic.render_frame(scene, *synthetic.stereo_right_pose(Rs[i], ts[i], 0.2)), 0.05 * i)
+            else:
+                T = system.track_rgbd(img, synthetic.render_depth(scene, Rs[i], ts[i]) * 5000.0, 0.05 * i)
+            assert T is not None and system.get_tracking_state() == TrackState.OK, i
+        assert trk.loop_closer.cfg.fix_scale and (trk.worker is not None) == async_mapping
+        with pytest.raises(ValueError, match=sensor.name):
+            system.track_monocular(img, 1.0)
+    finally:
+        system.shutdown()
+
+
+@pytest.fixture(scope="module")
+def pinhole_rig():
+    """The EuRoC-like unrectified rig of tests/test_rectify.py."""
+    from orbslam3_cpp_fork_tpu_torch.utils import rectify
+
+    K1 = np.array([[458.0, 0, 367.2], [0, 457.3, 248.4], [0, 0, 1.0]])
+    K2 = np.array([[457.6, 0, 379.9], [0, 456.1, 255.2], [0, 0, 1.0]])
+    dist1 = np.array([-0.28, 0.074, 1.8e-4, 1.5e-5, 0.0])
+    dist2 = np.array([-0.284, 0.076, -1.0e-4, 2.0e-5, 0.0])
+    T = np.eye(4)
+    T[:3, :3] = rectify._rodrigues_inv(np.array([0.004, -0.015, 0.008]))
+    T[:3, 3] = [0.110, 0.0004, -0.0008]
+    return K1, dist1, K2, dist2, T
+
+
+def test_system_wires_rectification(pinhole_rig):
+    """tests/test_rectify.py::test_system_wires_rectification on the port:
+    the tracker gets the rectified linear camera and bf = baseline * fx, and
+    a raw pair runs through `remap_bilinear` and stereo tracking."""
+    K1, dist1, K2, dist2, T = pinhole_rig
+    s = tsettings.Settings(
+        camera_type="PinHole", camera=Camera.pinhole(K1[0, 0], K1[1, 1], K1[0, 2], K1[1, 2], dist=dist1),
+        camera2=Camera.pinhole(K2[0, 0], K2[1, 1], K2[0, 2], K2[1, 2], dist=dist2), width=752, height=480, fps=20.0,
+        rgb=False, n_features=500, scale_factor=1.2, n_levels=4, ini_th_fast=20, min_th_fast=7, Tlr=T,
+        stereo_th_depth=35.0,
+    )
+    system = System(s, Sensor.STEREO, async_mapping=False, enable_loop_closing=False, device="cpu")
+    try:
+        assert system._rect is not None
+        cam = system.tracker.cfg.camera
+        assert max(abs(d) for d in cam.dist) == 0.0
+        assert system.tracker.cfg.bf == pytest.approx(system._rect.baseline * cam.fx, rel=1e-6)
+        img = np.random.default_rng(0).uniform(0, 255, (480, 752)).astype(np.float32)
+        system.track_stereo(img, img, 0.0)
+        l, r = system._remap_pair(img, img)
+        assert l.shape == (480, 752) and np.isfinite(l).all() and np.isfinite(r).all() and (l > 0).mean() > 0.9
+    finally:
+        system.shutdown()
+
+
+def test_system_legacy_rectification(tmp_path):
+    """tests/test_rectify_legacy.py on the port: LEFT./RIGHT. K, D, R, P."""
+    from test_settings_io import LEGACY_YAML as LEGACY_RECT_YAML
+
+    p = tmp_path / "legacy.yaml"
+    p.write_text(LEGACY_RECT_YAML)
+    system = System(tsettings.load_settings(str(p)), Sensor.STEREO, async_mapping=False, enable_loop_closing=False,
+                    device="cpu")
+    try:
+        assert system._rect is not None
+        assert system.tracker.cfg.bf == pytest.approx(47.90639384423901, rel=1e-6)
+        assert system.tracker.cfg.camera.fx == pytest.approx(435.2047, rel=1e-5)
+        img = np.random.default_rng(1).uniform(0, 255, (480, 752)).astype(np.float32)
+        system.track_stereo(img, img, 0.0)
+    finally:
+        system.shutdown()
+
+
+TUMVI_YAML = """%YAML:1.0
+File.version: "1.0"
+Camera.type: "KannalaBrandt8"
+Camera1.fx: 190.978477
+Camera1.fy: 190.973307
+Camera1.cx: 254.931706
+Camera1.cy: 256.897443
+Camera1.k1: 0.003482
+Camera1.k2: 0.000715
+Camera1.k3: -0.002053
+Camera1.k4: 0.000202
+Camera2.fx: 190.44237
+Camera2.fy: 190.434438
+Camera2.cx: 252.599497
+Camera2.cy: 254.917231
+Camera2.k1: 0.003400
+Camera2.k2: 0.001766
+Camera2.k3: -0.002663
+Camera2.k4: 0.000330
+Stereo.T_c1_c2: !!opencv-matrix
+  rows: 4
+  cols: 4
+  dt: f
+  data: [0.999999, 0.000792, 0.000694, 0.101063,
+         -0.000823, 0.998899, 0.046895, 0.001946,
+         -0.000656, -0.046896, 0.998900, 0.001015,
+         0.0, 0.0, 0.0, 1.0]
+Camera1.overlappingBegin: 0
+Camera1.overlappingEnd: 511
+Camera2.overlappingBegin: 0
+Camera2.overlappingEnd: 511
+Camera.width: 512
+Camera.height: 512
+Camera.fps: 20
+Camera.RGB: 1
+ORBextractor.nFeatures: 256
+ORBextractor.scaleFactor: 1.2
+ORBextractor.nLevels: 4
+ORBextractor.iniThFAST: 20
+ORBextractor.minThFAST: 7
+"""
+
+
+def test_tumvi_settings_build_system(tmp_path):
+    """tests/test_fisheye_stereo.py::test_tumvi_settings_build_system on the
+    port, with the visual STEREO sensor (IMU_STEREO is A13): a KB8 rig
+    builds the fisheye stereo configuration and tracks a pair."""
+    p = tmp_path / "tumvi.yaml"
+    p.write_text(TUMVI_YAML)
+    system = System(str(p), Sensor.STEREO, async_mapping=False, enable_loop_closing=False, device="cpu")
+    try:
+        cfg = system.tracker.cfg
+        assert cfg.camera.kind == cfg.camera2.kind == "kb8"
+        assert abs(cfg.bf - 0.1011 * 190.978477) / cfg.bf < 0.01 and cfg.lapping_l == (0.0, 511.0)
+        assert np.allclose(cfg.R_rl @ cfg.R_rl.T, np.eye(3), atol=1e-5) and abs(np.linalg.norm(cfg.t_rl) - 0.1011) < 1e-3
+        img = np.random.default_rng(2).uniform(0, 255, (512, 512)).astype(np.float32)
+        system.track_stereo(img, img, 0.0)
+    finally:
+        system.shutdown()

@@ -239,13 +239,10 @@ def test_mapping_step_parity(tracked, sequence):
 @pytest.mark.parametrize(
     "kw,item",
     [
-        (dict(sensor=tt.Sensor.STEREO), "A11"),
-        (dict(sensor=tt.Sensor.RGBD), "A11"),
         (dict(sensor=tt.Sensor.IMU_MONOCULAR), "A13"),
         (dict(imu=object()), "A13"),
         (dict(sensor=tt.Sensor.IMU_STEREO), "A13"),
         (dict(sensor=tt.Sensor.IMU_RGBD), "A13"),
-        (dict(enable_loop_closing=True, sensor=tt.Sensor.STEREO), "A11"),
     ],
 )
 def test_unsupported_configs_are_refused(kw, item):
@@ -285,6 +282,46 @@ def test_async_and_pipelined_configs_construct(kw, lag, worker):
     finally:
         if trk.worker is not None:
             trk.worker.stop()
+
+
+@pytest.mark.parametrize(
+    "sensor,kw",
+    [
+        (tt.Sensor.STEREO, dict(async_mapping=False, enable_loop_closing=False)),
+        (tt.Sensor.RGBD, dict(async_mapping=False, enable_loop_closing=False)),
+        (tt.Sensor.STEREO, dict()),  # the reference's default: workers, loop closing, global BA
+        (tt.Sensor.RGBD, dict()),
+    ],
+)
+def test_stereo_and_rgbd_trackers_track_a_frame(sensor, kw):
+    """STEREO and RGBD trackers are built (they were refused until A11),
+    initialize from the first frame's depth and track the second; a loop
+    closer of either closes loops in SE(3) (fix_scale)."""
+    scene = synthetic.make_scene(seed=5, n_points=1500, width=320, height=240, fx=400.0)
+    Rs, ts = synthetic.smooth_trajectory(n_frames=2, step=0.12, yaw_rate=0.002)
+    trk = tt.Tracker(tt.TrackerConfig(
+        camera=convert.camera_from_numpy(400.0, 400.0, 160.0, 120.0), width=320, height=240, sensor=sensor,
+        orb=OrbParams(n_features=400), bf=80.0, th_depth=8.0, stereo_init_min_features=300, local_lm_cap=1024,
+        ba_lm_cap=1024, ba_obs_cap=8192, map_cfg=MapConfig(max_keyframes=32, max_landmarks=4096), **kw,
+    ), "cpu")
+    n_threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        for i in range(2):
+            img = synthetic.render_frame(scene, Rs[i], ts[i])
+            if sensor == tt.Sensor.STEREO:
+                T = trk.track_stereo(img, synthetic.render_frame(scene, *synthetic.stereo_right_pose(Rs[i], ts[i], 0.2)), 0.05 * i)
+            else:
+                T = trk.track_rgbd(img, synthetic.render_depth(scene, Rs[i], ts[i]), 0.05 * i)
+            assert T is not None and trk.state == tt.TrackState.OK, i
+        assert trk.map.n_landmarks() > 100 and (trk.last.ur >= 0).sum() > 50 and trk.n_pipelined_frames == 0
+        assert (trk.loop_closer is not None) == kw.get("enable_loop_closing", True)
+        assert trk.loop_closer is None or trk.loop_closer.cfg.fix_scale
+    finally:
+        torch.set_num_threads(n_threads)
+        if trk.worker is not None:
+            trk.worker.stop()
+            trk.loop_worker.stop()
 
 
 def test_supported_config_and_device_default():
