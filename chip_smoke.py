@@ -102,6 +102,33 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                the map initialized from the pair, its landmarks' depths
                against the rendered depth. orb_describe runs twice a stereo
                pair and once an RGB-D frame.
+ 10. merge   - the multi-map Atlas on the scene of tests/test_atlas_merge.py
+               at its 640x480 and 1000 features (a 2.5 pi circle in 120
+               frames, frames 40-47 flat, loop closing on, RECENTLY_LOST
+               cut to 0.15 s and the relocalization patience to 3 frames).
+               First the fused describe kernel against its plain version on
+               the scene's pyramid and on the flat frame. Part A, the
+               synchronous tracker, twice: a second map spawned after the
+               blind stretch, map 1 welded into map 0, one map and state OK
+               at the end, > 80 poses exported and tracked while OK; the
+               scale-aligned ATE of the poses tracked while OK at the weld
+               (exported at the merge's frame) within max(JAX, port on the
+               CPU) + 10 mm and 0.15 m; at the end within the largest end
+               of the CPU runs under perturbation + 10 mm (the end spreads
+               at the global BA after the loop, in the reference too:
+               ROADMAP C2, see MERGE_END_MAX_ATE_M); the second run bitwise
+               equal. Part B, the default mode through System (the merge
+               parked for the track thread): no thread error, two maps seen,
+               the exported poses in time order and, after a merge, in one
+               map (the reference merged in none of three CPU runs of this
+               mode, so no merge is required), the ATE of each map's poses
+               tracked while OK within part A's end bound. Part C: part A's
+               Atlas through checkpoint.save_atlas
+               into a fresh synchronous System(load_atlas=...): every array
+               bitwise, state LOST, then
+               localization mode over frames 10-19: a pose comes back, no
+               keyframe is added, the last pose within 0.05 m of part A's
+               (tests/test_system.py's bars). One describe launch a frame.
 `--profile N` adds a torch.profiler pass over N frames (kernel launches and
 device time per frame, host time per stage) and over the SLAM phase's
 tracked frames and mapping steps, `--compare-routes` a timing of the tracker
@@ -206,6 +233,47 @@ STEREO_JAX_ATE_M = 0.042988
 STEREO_PORT_ATE_M = 0.044783
 RGBD_JAX_ATE_M = 0.005728
 RGBD_PORT_ATE_M = 0.005598
+# The merge phase: the scene of tests/test_atlas_merge.py at its 640x480 and
+# 1000 features (make_ring_scene(seed=11, n_points=900, size_range=(9, 15)),
+# a 2.5 pi circle in 120 frames 0.05 s apart, frames 40-47 flat at 35.0),
+# loop closing on, time_recently_lost 0.15 s and reloc_patience 3, so that
+# the blind stretch falls through to LOST and spawns a second Atlas map.
+MERGE_FRAMES = 120
+MERGE_BLIND = (40, 48)
+MERGE_FLAT = 35.0
+MERGE_RECENTLY_LOST_S = 0.15
+MERGE_RELOC_PATIENCE = 3
+MERGE_MIN_POSES = 80
+MERGE_MAX_ATE_M = 0.15  # the bar of tests/test_atlas_merge.py
+# Scale-aligned ATE RMSE (m) of the synchronous run on a CPU over every
+# exported pose at the end (`pytest -m slow -s tests/test_torch_merge_e2e.py
+# -k full_width`, PERF.md): reported beside part A's.
+MERGE_JAX_ATE_M = 0.07760437872034853
+MERGE_PORT_ATE_M = 0.10939217267770134
+# Part A's gates. The weld is held to the CPU runs: the scale-aligned ATE of
+# the poses tracked while OK, exported at the frame whose loop step merged
+# (reference 0.062163 m, port 0.056912 m, both at frame 103; `-k
+# full_width`), within the larger + TOL_LOOP_ATE_M and MERGE_MAX_ATE_M. The
+# end, after the loop that follows and its global BA, spreads: under
+# rounding-sized noise and other RANSAC draws the CPU runs end at
+# 0.056-0.097 m (reference) and 0.056-0.253 m (port; `-k end_spread`), and
+# from the state of the port's 0.253 m run before its loop keyframe the
+# reference ends over tests/test_atlas_merge.py's 0.15 m bar too (`-k
+# as_far_off`; ROADMAP C2, classified). So the end is held to the largest end
+# measured + TOL_LOOP_ATE_M, and so is part B's.
+MERGE_JAX_WELD_ATE_M = 0.06216332984328071
+MERGE_PORT_WELD_ATE_M = 0.056911781420670035
+MERGE_SPREAD_END_M = 0.2526909968933796
+MERGE_END_MAX_ATE_M = MERGE_SPREAD_END_M + TOL_LOOP_ATE_M
+# Part B: in the default mode the reference merged in none of three CPU runs
+# (each kept three maps: a second loss spawned a third; `-k default_mode`),
+# so part B requires no merge, as loop B's tracked-pose count follows the
+# reference's fewest (PERF.md); its ATE is taken per map, at the end, within
+# MERGE_END_MAX_ATE_M.
+MERGE_ASYNC_REF_MERGES = 0
+# Part C: the checkpoint's relocalization bars (tests/test_system.py).
+CKPT_FRAMES = (10, 20)
+CKPT_TOL_M = 0.05
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOPS = 67e12  # H100 SXM data sheet, float32 outside the tensor cores
 
@@ -717,7 +785,7 @@ def phase_slam(dev, scene, ts, frames, orb_params, gate_ate):
 
 
 def make_system(dev, scene, orb_params, async_mapping=True, enable_loop_closing=False, sensor=None, camera=None,
-                **settings_kw):
+                load_atlas=None, **settings_kw):
     """The port's System over a Settings object made in code (no YAML);
     `settings_kw` are further Settings fields (bf, a second camera...)."""
     from orbslam3_cpp_fork_tpu_torch import convert
@@ -733,7 +801,7 @@ def make_system(dev, scene, orb_params, async_mapping=True, enable_loop_closing=
         ini_th_fast=int(orb_params.th_fast_high), min_th_fast=int(orb_params.th_fast_low), **settings_kw,
     )
     return System(settings, sensor or Sensor.MONOCULAR, async_mapping=async_mapping,
-                  enable_loop_closing=enable_loop_closing, device=dev)
+                  enable_loop_closing=enable_loop_closing, load_atlas=load_atlas, device=dev)
 
 
 def run_async(dev, scene, frames, orb_params, time_recently_lost=None):
@@ -1407,6 +1475,269 @@ def phase_stereo(dev, orb_params, gate_ate):
     return launches, launches_rgbd, worst
 
 
+def render_merge():
+    """The scene of tests/test_atlas_merge.py: uint8 frames (the tracker's
+    own conversion of the float renders), the blind stretch flat."""
+    import numpy as np
+
+    from orbslam3_cpp_fork_tpu_torch.datasets import synthetic
+
+    scene = synthetic.make_ring_scene(seed=11, n_points=900, size_range=(9, 15))
+    Rs, ts = synthetic.circle_trajectory(n_frames=MERGE_FRAMES, radius=2.5, total_angle=2.5 * np.pi)
+    flat = synthetic.to_u8(np.full((scene.height, scene.width), MERGE_FLAT, np.float32))
+    frames = [flat if MERGE_BLIND[0] <= i < MERGE_BLIND[1] else synthetic.to_u8(synthetic.render_frame(scene, R, t))
+              for i, (R, t) in enumerate(zip(Rs, ts))]
+    return scene, Rs, ts, frames
+
+
+def merge_tracker(trk):
+    """Collapse the RECENTLY_LOST window and the relocalization patience (as
+    tests/test_atlas_merge.py does)."""
+    trk.cfg.time_recently_lost = MERGE_RECENTLY_LOST_S
+    trk.reloc_patience = MERGE_RELOC_PATIENCE
+
+
+def merge_ms(trk):
+    """Host milliseconds of each merge the tracker executed (its `merge`
+    span)."""
+    return [x * 1e3 for x in trk.timers.samples.get("merge", [])]
+
+
+def run_merge_sync(dev, scene, frames, ts_gt, orb_params):
+    """Part A: the synchronous tracker with loop closing over the scene. At
+    the frame whose loop step welds the maps the trajectory is exported (a
+    synchronous export changes no state) and its poses tracked while OK are
+    scored: the weld's own accuracy, before later corrections."""
+    import numpy as np
+
+    from orbslam3_cpp_fork_tpu_torch import convert
+    from orbslam3_cpp_fork_tpu_torch.runtime.tracker import Tracker, TrackerConfig
+    from orbslam3_cpp_fork_tpu_torch.utils.evaluation import ate_rmse
+
+    K = scene.K
+    trk = Tracker(TrackerConfig(
+        camera=convert.camera_from_numpy(K[0, 0], K[1, 1], K[0, 2], K[1, 2]), width=scene.width,
+        height=scene.height, orb=orb_params, async_mapping=False, enable_loop_closing=True,
+    ), dev)
+    merge_tracker(trk)
+    dead = spy_dead_reckoned(trk)
+    read = counted(dev)
+    maps_seen, weld, t_weld = 1, None, 0.0
+    t0 = time.perf_counter()
+    for i, f in enumerate(frames):
+        n_maps = trk.atlas.n_maps()
+        trk.track(f, i * 0.05)
+        maps_seen = max(maps_seen, trk.atlas.n_maps())
+        if weld is None and n_maps == 2 and trk.atlas.n_maps() == 1:
+            t1 = time.perf_counter()
+            ts_w, Twc_w = trk.export_trajectory()
+            keep = tracked_mask(ts_w, dead)
+            weld = (i, float(ate_rmse(ts_w[keep], Twc_w[keep, :3, 3], np.arange(len(frames)) * 0.05,
+                                      ts_gt).rmse_scaled), int(keep.sum()))
+            t_weld = time.perf_counter() - t1
+    secs = time.perf_counter() - t0 - t_weld
+    ts_est, Twc = trk.export_trajectory()
+    return trk, maps_seen, ts_est, Twc, read(), secs, merge_ms(trk), dead, weld
+
+
+def per_map_ate(trk, ts_est, Twc, keep, stamps, ts_gt):
+    """The largest scale-aligned ATE RMSE over the maps of the Atlas, each
+    map's kept exported poses aligned on their own (a record of a merged-away
+    map counts in the map it was welded into, as export_trajectory resolves
+    it)."""
+    import numpy as np
+
+    from orbslam3_cpp_fork_tpu_torch.utils.evaluation import ate_rmse
+
+    maps_by_id = {m.map_id: m for m in trk.atlas.maps}
+    mids = []
+    for _, _, mid, k, _, _ in trk.trajectory:
+        while (mid, k) in trk._kf_alias:
+            mid, k = trk._kf_alias[(mid, k)]
+        m = maps_by_id.get(mid)
+        if m is not None and m.kf_valid[k]:
+            mids.append(mid)
+    mids = np.asarray(mids)
+    if len(mids) != len(ts_est):
+        fail("per-map ATE: the trajectory records do not match the exported poses")
+    worst = 0.0
+    for mid in np.unique(mids):
+        sel = keep & (mids == mid)
+        if sel.sum() >= 10:
+            worst = max(worst, float(ate_rmse(ts_est[sel], Twc[sel, :3, 3], stamps, ts_gt).rmse_scaled))
+    return worst
+
+
+def atlas_arrays(atlas):
+    """Every array field of every map of an Atlas, by name."""
+    import numpy as np
+
+    return [{k: v for k, v in vars(m).items() if isinstance(v, np.ndarray)} for m in atlas.maps]
+
+
+def phase_merge(dev, orb_params, gate_ate):
+    """The multi-map Atlas on the card (module docstring, phase 10)."""
+    import tempfile
+
+    import numpy as np
+
+    from orbslam3_cpp_fork_tpu_torch.runtime import checkpoint
+    from orbslam3_cpp_fork_tpu_torch.utils.evaluation import ate_rmse
+
+    t_phase = time.perf_counter()
+    scene, Rs, ts, frames = render_merge()
+    n = len(frames)
+    stamps = np.arange(n) * 0.05
+    launches = 0
+
+    # The fused describe kernel against its plain version on this scene's
+    # 640x480 pyramid and on the flat frame, which has no keypoint (not
+    # counted: the counts are zeroed before each run below).
+    worst = hold_describe(f"merge scene frame 0 ({scene.width}x{scene.height}, {N_FEATURES} features)",
+                          *frame_levels(dev, frames[0], orb_params))
+    flat_levels = frame_levels(dev, frames[MERGE_BLIND[0]], orb_params)
+    if bool(flat_levels[3].any()):
+        fail("merge: the flat frame has keypoints")
+    worst = max(worst, hold_describe("the merge scene's flat frame (no keypoints)", *flat_levels))
+
+    # Part A: synchronous, twice.
+    runs = []
+    for r in range(2):
+        trk, maps_seen, ts_est, Twc, (cnt, host), secs, ms, dead, weld = run_merge_sync(
+            dev, scene, frames, ts, orb_params)
+        if cnt != n or host != n:
+            fail(f"merge A: orb_describe ran {cnt} times on the card ({host} by the wrapper) for {n} frames")
+        launches += cnt
+        runs.append((trk, maps_seen, ts_est, Twc, ms, dead, weld))
+        log(f"merge A run {r + 1}: {len(ts_est)} poses exported for {n} frames, at most {maps_seen} maps, merges "
+            f"{[e for e in trk.events if e['kind'] == 'merge']}, {trk.atlas.n_maps()} map(s) at the end, state "
+            f"{trk.state.name}, keyframes {trk.map.n_keyframes()}, landmarks {trk.map.n_landmarks()}; {secs:.2f} s "
+            f"({secs / n * 1e3:.1f} ms a frame), merge {', '.join(f'{x:.1f}' for x in ms)} ms on the host clock")
+    trk, maps_seen, ts_est, Twc, ms_a, dead, weld = runs[0]
+    # ROADMAP R12: a frame whose tracking fails is exported with its failed
+    # pose optimization's pose while RECENTLY_LOST, in both implementations;
+    # the ATE is gated over the poses tracked while OK and reported over all.
+    tracked = tracked_mask(ts_est, dead)
+    ate = ate_rmse(ts_est[tracked], Twc[tracked, :3, 3], stamps, ts)
+    ate_all = ate_rmse(ts_est, Twc[:, :3, 3], stamps, ts)
+    bound = min(max(MERGE_JAX_WELD_ATE_M, MERGE_PORT_WELD_ATE_M) + TOL_LOOP_ATE_M, MERGE_MAX_ATE_M)
+    same = Twc.shape == runs[1][3].shape and np.array_equal(Twc, runs[1][3])
+    merges = [e for e in trk.events if e["kind"] == "merge"]
+    weld_ate = weld[1] if weld is not None else float("nan")
+    lost_after_weld = sorted(f for f in dead if weld is not None and f > weld[0])
+    log(f"merge A: at the weld (frame {weld and weld[0]}) scale-aligned ATE RMSE of the {weld and weld[2]} poses "
+        f"tracked while OK {weld_ate:.6f} m, bound min(max({MERGE_JAX_WELD_ATE_M:.6f}, {MERGE_PORT_WELD_ATE_M:.6f}) "
+        f"+ {TOL_LOOP_ATE_M}, {MERGE_MAX_ATE_M}) = {bound:.6f} m; at the end, after the loop and its global BA, of the "
+        f"{int(tracked.sum())} poses tracked while OK {ate.rmse_scaled:.6f} m (scale {ate.scale:.4f}; bound "
+        f"{MERGE_END_MAX_ATE_M:.6f} m, the CPU spread's largest + {TOL_LOOP_ATE_M}; frames lost after the weld "
+        f"{lost_after_weld}), of every exported pose {ate_all.rmse_scaled:.6f} m (RECENTLY_LOST frames "
+        f"{sorted(dead)}, ROADMAP R12); the CPU runs of the scene scored at the end: reference "
+        f"{MERGE_JAX_ATE_M:.6f} m, port {MERGE_PORT_ATE_M:.6f} m (every exported pose); loops "
+        f"{trk.loop_closer.n_loops_closed}; second run bitwise equal to the first: {same}")
+    if maps_seen < 2:
+        fail("merge A: no second Atlas map after the blind stretch")
+    if trk.loop_closer.n_merges < 1 or not merges or merges[0]["src_map"] != 1 or merges[0]["dst_map"] != 0:
+        fail(f"merge A: merges {merges} (map 1 welded into map 0 required)")
+    if trk.atlas.n_maps() != 1 or trk.state.name != "OK":
+        fail(f"merge A: {trk.atlas.n_maps()} maps, state {trk.state.name} at the end (1 map, OK required)")
+    if len(ts_est) <= MERGE_MIN_POSES or tracked.sum() <= MERGE_MIN_POSES or not np.isfinite(Twc).all():
+        fail(f"merge A: {len(ts_est)} poses exported, {int(tracked.sum())} tracked (> {MERGE_MIN_POSES} finite "
+             "required)")
+    if not same:
+        fail("merge A: the second run's trajectory differs from the first")
+    if weld is None or (gate_ate and not weld_ate <= bound):
+        fail(f"merge A: scale-aligned ATE at the weld {weld_ate:.6f} m > {bound:.6f} m")
+    if gate_ate and not ate.rmse_scaled <= MERGE_END_MAX_ATE_M:
+        fail(f"merge A: scale-aligned ATE at the end {ate.rmse_scaled:.6f} m > {MERGE_END_MAX_ATE_M:.6f} m")
+
+    # Part B: the default mode through System (mapping and loop workers, the
+    # background global BA; a merge is parked for the track thread).
+    system = make_system(dev, scene, orb_params, enable_loop_closing=True)
+    trk_b = system.tracker
+    if trk_b.worker is None or trk_b.loop_worker is None:
+        fail("merge B: the default mode has no workers")
+    merge_tracker(trk_b)
+    dead = spy_dead_reckoned(trk_b)
+    read = counted(dev)
+    maps_b = 1
+    t0 = time.perf_counter()
+    for i, f in enumerate(frames):
+        system.track_monocular(f, i * 0.05)
+        maps_b = max(maps_b, system.atlas.n_maps())
+    t_track = time.perf_counter() - t0
+    ts_b, Twc_b = trk_b.export_trajectory()  # flushes every worker (re-raising their failures)
+    cnt, host = read()
+    system.shutdown()  # re-raises a failure of any worker thread
+    tracked = tracked_mask(ts_b, dead)
+    ate_b = per_map_ate(trk_b, ts_b, Twc_b, tracked, stamps, ts)
+    ate_b_all = ate_rmse(ts_b, Twc_b[:, :3, 3], stamps, ts)
+    bound_b = MERGE_END_MAX_ATE_M
+    log(f"merge B: at most {maps_b} maps, merges {system.n_merges} executed "
+        f"{[e for e in trk_b.events if e['kind'] == 'merge']}, {system.atlas.n_maps()} map(s) at the end, state "
+        f"{trk_b.state.name}; {len(ts_b)} poses exported, {int(tracked.sum())} tracked while OK; loss events "
+        f"{trk_b.n_lost_events}; {n / t_track:.3f} fps over the track() calls; merge "
+        f"{', '.join(f'{x:.1f}' for x in merge_ms(trk_b))} ms; scale-aligned ATE of the tracked poses, the worst "
+        f"map's, {ate_b:.6f} m (every exported pose in one alignment {ate_b_all.rmse_scaled:.6f} m); bound "
+        f"{bound_b:.6f} m, part A's; describe launches {cnt}")
+    if cnt != n or host != n:
+        fail(f"merge B: orb_describe ran {cnt} times on the card ({host} by the wrapper) for {n} frames")
+    launches += cnt
+    if maps_b < 2:
+        fail("merge B: no second Atlas map after the blind stretch")
+    if not np.all(np.diff(ts_b) > 0) or not np.isfinite(Twc_b).all():
+        fail("merge B: the exported poses are not in time order or not finite")
+    if system.n_merges < MERGE_ASYNC_REF_MERGES:
+        fail(f"merge B: {system.n_merges} merges (>= {MERGE_ASYNC_REF_MERGES}, the reference's fewest, required)")
+    if system.n_merges >= 1 and system.atlas.n_maps() != 1:
+        fail(f"merge B: {system.atlas.n_maps()} maps after a merge (the poses must share one frame)")
+    if gate_ate and not ate_b <= bound_b:
+        fail(f"merge B: scale-aligned ATE of the tracked poses {ate_b:.6f} m > {bound_b:.6f} m")
+
+    # Part C: part A's Atlas through a checkpoint into a fresh synchronous
+    # System, then localization mode over frames 10-19.
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "atlas.npz")
+        extra = {"sensor": "MONOCULAR", "kfdb_seed": trk.kfdb._seed, "kfdb_n_words": trk.kfdb.n_words}
+        checkpoint.save_atlas(trk.atlas, path, extra=extra)
+        system_c = make_system(dev, scene, orb_params, async_mapping=False, enable_loop_closing=True, load_atlas=path)
+    trk_c = system_c.tracker
+    saved, loaded = atlas_arrays(trk.atlas), atlas_arrays(trk_c.atlas)
+    diff = [k for a, b in zip(saved, loaded) for k in a if not np.array_equal(a[k], b[k])]
+    state0 = system_c.get_tracking_state().name
+    system_c.activate_localization_mode()
+    m_c = trk_c.map
+    n_kf0 = m_c.n_keyframes()
+    read = counted(dev)
+    poses = [(i, system_c.track_monocular(frames[i], float(stamps[i]))) for i in range(*CKPT_FRAMES)]
+    cnt, host = read()
+    ok = [(i, T) for i, T in poses if T is not None]
+    err = float("nan")
+    if ok:
+        i0, T0 = ok[-1]
+        j = int(np.argmin(np.abs(ts_est - stamps[i0])))
+        err = float(np.linalg.norm(T0[:3, 3] - np.linalg.inv(Twc[j])[:3, 3]))
+    n_c = CKPT_FRAMES[1] - CKPT_FRAMES[0]
+    log(f"merge C: {len(saved)} map(s) saved and loaded, differing arrays {diff}; state after the load {state0}; "
+        f"poses at frames {[i for i, _ in ok]}; keyframes {n_kf0} -> {m_c.n_keyframes()}; last pose {err:.4f} m "
+        f"from the saved trajectory's; describe launches {cnt}")
+    system_c.shutdown()
+    if diff or len(loaded) != len(saved):
+        fail(f"merge C: arrays differ after the round trip: {diff}")
+    if state0 != "LOST":
+        fail(f"merge C: state {state0} after the load (LOST required)")
+    if not ok or m_c.n_keyframes() != n_kf0:
+        fail(f"merge C: no pose came back ({len(ok)}) or keyframes were added ({n_kf0} -> {m_c.n_keyframes()})")
+    if not err < CKPT_TOL_M:
+        fail(f"merge C: relocalized pose {err:.4f} m from the saved trajectory's (< {CKPT_TOL_M} required)")
+    if cnt != n_c or host != n_c:
+        fail(f"merge C: orb_describe ran {cnt} times on the card ({host} by the wrapper) for {n_c} frames")
+    launches += cnt
+    secs = time.perf_counter() - t_phase
+    log(f"merge: phase {secs:.1f} s for {2 * n + n + n_c} frames ({secs / (3 * n + n_c) * 1e3:.1f} ms a frame on the "
+        f"host clock, builds and checks included), part A merge {np.mean(ms_a):.1f} ms; {card_line()}")
+    return launches, worst
+
+
 def phase_profile_slam(dev, scene, frames, orb_params):
     """torch.profiler over the SLAM phase's frames after initialization:
     kernel launches and device time per tracked frame and per mapping step
@@ -1611,6 +1942,7 @@ def main(argv=None) -> int:
         phase_ladder(dev, scene, frames, orb_params)
     loop_launches = phase_loop(dev, orb_params, gate_ate=args.frames == FRAMES)
     stereo_launches, rgbd_launches, stereo_describe_err = phase_stereo(dev, orb_params, gate_ate=args.frames == FRAMES)
+    merge_launches, merge_describe_err = phase_merge(dev, orb_params, gate_ate=args.frames == FRAMES)
     if args.compare_routes:
         phase_compare_routes(dev, make, frames)
     if args.profile:
@@ -1625,15 +1957,16 @@ def main(argv=None) -> int:
             "source": "orbslam3_cpp_fork_tpu_torch/csrc/orb_describe.cu", "replaces": tpu_kernel,
             # One launch a frame on every mono path: localization-only
             # tracking, the synchronous cold-start SLAM run, the
-            # asynchronous one and the loop phase's runs (A twice, B, C);
-            # two a stereo pair and one an RGB-D frame in the stereo phase;
-            # each counted from 0.
+            # asynchronous one, the loop phase's runs (A twice, B, C) and
+            # the merge phase's (A twice, B, C); two a stereo pair and one
+            # an RGB-D frame in the stereo phase; each counted from 0.
             "launches": describe_launches + slam_launches + async_launches + loop_launches + stereo_launches
-            + rgbd_launches,
+            + rgbd_launches + merge_launches,
             "launches_localization": describe_launches, "launches_slam": slam_launches,
             "launches_async": async_launches, "launches_loop": loop_launches,
             "launches_stereo": stereo_launches, "launches_rgbd": rgbd_launches,
-            "max_abs_err": max(describe["max_abs_err"], stereo_describe_err),
+            "launches_merge": merge_launches,
+            "max_abs_err": max(describe["max_abs_err"], stereo_describe_err, merge_describe_err),
             "ms": describe["ms"], "plain_ms": describe["plain_ms"],
             "bound_ms": describe["bound_ms"], "bound_by": describe["bound_by"],
             # No single PyTorch call gathers windows, sums moments and

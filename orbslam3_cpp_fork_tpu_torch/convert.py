@@ -1,7 +1,8 @@
 """The state carried across from the reference runtime: camera, local-map
-snapshot, the whole map, a window-BA problem, the tracker configuration, the
-tracker's live state (last frame, motion model, reference keyframe,
-trajectory records), the keyframe database and the loop closer's state.
+snapshot, a map and the whole Atlas, a window-BA problem, the tracker
+configuration, the tracker's live state (last frame, motion model, reference
+keyframe, trajectory records, keyframe aliases), the keyframe database (rows
+by (map, slot)) and the loop closer's state.
 
 The system has no weights. Its tracking state is the camera and the
 local-map snapshot the reference uploads in Tracker._refresh_dev_local:
@@ -19,6 +20,7 @@ import numpy as np
 import torch
 
 from .device import get_device
+from .models.atlas import Atlas
 from .models.map_state import MapConfig, MapState
 from .ops.camera import Camera
 from .ops.orb import OrbParams
@@ -103,6 +105,25 @@ def map_state_from_numpy(arrays: dict) -> MapState:
             setattr(m, k, type(getattr(m, k))(arrays[k]))
     m.mark_obs_dirty()
     return m
+
+
+def atlas_to_numpy(atlas) -> dict:
+    """Every map of an Atlas (the reference's or the port's) as
+    `map_state_to_numpy` dicts, with the active index and the next map id."""
+    return dict(
+        maps=[map_state_to_numpy(m) for m in atlas.maps],
+        active_idx=int(atlas.active_idx), next_map_id=int(atlas._next_map_id),
+    )
+
+
+def atlas_from_numpy(d: dict) -> Atlas:
+    """The port's Atlas in the state of `atlas_to_numpy`."""
+    maps = [map_state_from_numpy(a) for a in d["maps"]]
+    atlas = Atlas(maps[0].cfg)
+    atlas.maps = maps
+    atlas.active_idx = d["active_idx"]
+    atlas._next_map_id = d["next_map_id"]
+    return atlas
 
 
 BA_FIELDS = (
@@ -201,17 +222,29 @@ def tracker_state_to_numpy(trk) -> dict:
         snapshot_anchor=None if anchor is None else (int(anchor[0]), np.array(anchor[1]), np.array(anchor[2])),
         seen_change_idx=int(trk._seen_change_idx),
         trajectory=[(int(f), float(t), int(mid), int(k), np.array(R), np.array(tt)) for f, t, mid, k, R, tt in trk.trajectory],
+        traj_anchor_ptr=int(trk._traj_anchor_ptr), lost_frames=int(trk.lost_frames),
+        kf_alias={(int(a), int(b)): (int(c), int(d)) for (a, b), (c, d) in trk._kf_alias.items()},
     )
 
 
-def load_tracker_state(trk: Tracker, state: dict, map_arrays: dict | None = None) -> None:
-    """Put a port tracker into a state made by `tracker_state_to_numpy`
-    (and, with `map_arrays`, onto the map made by `map_state_to_numpy`).
-    The device snapshot is not carried over: the tracker rebuilds it from
-    the map at its next frame, as it does after any map change. The
-    trajectory records are not loaded (the new run records its own)."""
+def load_tracker_state(
+    trk: Tracker, state: dict, map_arrays: dict | None = None, atlas: dict | None = None,
+    trajectory: bool = False,
+) -> None:
+    """Put a port tracker into a state made by `tracker_state_to_numpy`:
+    with `map_arrays` (`map_state_to_numpy`) onto that map as its active
+    one, with `atlas` (`atlas_to_numpy`) onto that whole Atlas, which the
+    loop closer then reads too. The keyframe aliases are loaded; the
+    trajectory records only with `trajectory=True` (else the new run records
+    its own). The device snapshot and keyframe store are not carried over:
+    the tracker rebuilds them from the map at its next frame."""
+    if atlas is not None:
+        trk.atlas = atlas_from_numpy(atlas)
+        if trk.loop_closer is not None:
+            trk.loop_closer.atlas = trk.atlas
     if map_arrays is not None:
         trk.map = map_state_from_numpy(map_arrays)
+    trk._kf_store.invalidate()
     trk.state = TrackState[state["state"]]
     trk.frame_id = state["frame_id"]
     trk.ref_kf = state["ref_kf"]
@@ -222,6 +255,11 @@ def load_tracker_state(trk: Tracker, state: dict, map_arrays: dict | None = None
     trk.velocity = None if state["velocity"] is None else tuple(np.array(v, np.float32) for v in state["velocity"])
     trk.last = frame_from_numpy(state["last"])
     trk._seen_change_idx = state["seen_change_idx"]
+    trk.lost_frames = state.get("lost_frames", 0)
+    trk._kf_alias = dict(state.get("kf_alias", {}))
+    if trajectory:
+        trk.trajectory = [(f, t, mid, k, R.copy(), tt.copy()) for f, t, mid, k, R, tt in state["trajectory"]]
+        trk._traj_anchor_ptr = state["traj_anchor_ptr"]
     trk._dev_local = None
     trk._chain = None
     trk._pipe.clear()
@@ -260,15 +298,15 @@ def kfdb_from_numpy(d: dict, device) -> KeyFrameDatabase:
 
 
 def loop_state_to_numpy(lc) -> dict:
-    """A loop closer's state: the pending hypothesis (gid, count, (s, R, t),
-    keyframe), the last corrected keyframe, the persisted loop edges and the
-    number of loops closed."""
+    """A loop closer's state: the pending hypothesis (candidate gid, count,
+    (s, R, t), keyframe), the last corrected keyframe, the persisted loop
+    edges and the numbers of loops closed and merges proposed."""
     p = lc.pending
     return dict(
         pending=None if p is None else (int(p[0]), int(p[1]), (float(p[2][0]), np.array(p[2][1]), np.array(p[2][2])), int(p[3])),
         last_loop_kf=int(lc.last_loop_kf),
         loop_edges=[(int(mid), int(i), int(j), (float(S[0]), np.array(S[1]), np.array(S[2]))) for mid, i, j, S in lc.loop_edges],
-        n_loops_closed=int(lc.n_loops_closed),
+        n_loops_closed=int(lc.n_loops_closed), n_merges=int(lc.n_merges),
     )
 
 
@@ -279,6 +317,7 @@ def load_loop_state(lc, d: dict) -> None:
     lc.last_loop_kf = d["last_loop_kf"]
     lc.loop_edges = [(mid, i, j, (S[0], S[1].copy(), S[2].copy())) for mid, i, j, S in d["loop_edges"]]
     lc.n_loops_closed = d["n_loops_closed"]
+    lc.n_merges = d["n_merges"]
 
 
 def load_place_recognition(trk: Tracker, kfdb: dict, loop: dict | None = None) -> None:

@@ -33,6 +33,21 @@ def _nearest_words(desc_i8: torch.Tensor, codebook_i8: torch.Tensor) -> torch.Te
 
 N_WORDS = 1024
 
+# The Atlas's keyframes share one database: a row is a (map, keyframe slot)
+# pair, `map_id % MAX_MAPS * max_keyframes + slot`. Map ids MAX_MAPS apart
+# share a namespace (the reference's layout, ROADMAP R16).
+MAX_MAPS = 16
+
+
+def row_of(map_id: int, k: int, max_k: int) -> int:
+    """The database row of keyframe slot k of map `map_id`."""
+    return map_id % MAX_MAPS * max_k + int(k)
+
+
+def split_row(g: int, max_k: int) -> tuple[int, int]:
+    """(map namespace, keyframe slot) of a database row."""
+    return int(g) // max_k, int(g) % max_k
+
 
 class KeyFrameDatabase:
     def __init__(self, max_keyframes: int, device: torch.device, n_words: int = N_WORDS, seed: int = 0):

@@ -1,30 +1,34 @@
-"""Loop detection + correction (port of runtime/loop_closing.py without the
-Atlas merge; LoopClosing.cc).
+"""Loop detection, correction and the Atlas merge proposal (port of
+runtime/loop_closing.py; LoopClosing.cc).
 
 Host-orchestrated: every heavy stage is a device program on the tracker's
 device (signature word assignment, descriptor matching, Sim(3) RANSAC, Sim(3)
 refinement, guided projection, the essential-graph solve), the bookkeeping
 is numpy.
 
-Pipeline per keyframe (NewDetectCommonRegions + CorrectLoop):
+Pipeline per keyframe (NewDetectCommonRegions + CorrectLoop / MergeLocal):
  1. guards: enough keyframes, distance from the last correction;
- 2. a KeyFrameDatabase query excluding the temporally recent keyframes;
+ 2. a KeyFrameDatabase query over every map of the Atlas, excluding the
+    temporally recent keyframes; database rows are (map, keyframe slot)
+    pairs (`keyframe_database.row_of`);
  3. geometric validation of each candidate as ONE device program
     (`_validate_candidate_fused`): descriptor match on landmark-bound
     features -> Sim(3) RANSAC on matched camera-frame points -> Sim(3)
     refinement -> guided projection of the candidate window's landmarks;
+    a candidate in another map reads its rows from that map's arrays;
  4. temporal consistency: a hypothesis must validate on
     `LoopConfig.consecutive_kfs` consecutive keyframes; each new keyframe
     first re-validates the pending hypothesis through the tracked relative
     motion and falls back to a fresh query when none is pending;
- 5. correction: propagate the corrective Sim(3) through the covisible
-    window, re-anchor its landmarks, fuse duplicates against the loop window
-    (SearchAndFuse), then the essential graph over all keyframes.
+ 5. a confirmed hypothesis in the active map is corrected here: propagate
+    the corrective Sim(3) through the covisible window, re-anchor its
+    landmarks, fuse duplicates against the loop window (SearchAndFuse), then
+    the essential graph over all keyframes. One in another map becomes a
+    merge proposal that the tracker executes (`Tracker._execute_merge`),
+    whose last stage is `optimize_essential_graph_merge`.
 
 Randomness: the Sim(3) RANSAC draws its index sets from the closer's own
-`torch.Generator` (`_validate_candidate_fused` takes the raw draws). The
-Atlas holds one map (a second one is ROADMAP A12) and the database's rows are
-its keyframe slots, so every confirmed hypothesis is a loop.
+`torch.Generator` (`_validate_candidate_fused` takes the raw draws).
 """
 
 from __future__ import annotations
@@ -42,7 +46,7 @@ from ..models.map_state import LEVEL_SIGMA2, N_LEVELS, SCALE_FACTOR, MapState
 from ..ops import matching, ransac
 from ..ops.camera import true_div
 from ..optim import pose_graph, sim3_opt
-from .keyframe_database import KeyFrameDatabase
+from .keyframe_database import MAX_MAPS, KeyFrameDatabase, row_of, split_row
 from .tracker import _scale_pow
 from .tracker import _unpack_desc as _unpack_bits
 
@@ -53,7 +57,6 @@ log = logging.getLogger("orbslam3_torch.loop")
 _PROJ_CAP = 4096
 # RANSAC hypotheses of the Sim(3) validation (the reference's default).
 N_HYP_SIM3 = 128
-
 _LOG_SCALE = torch.log(torch.tensor(SCALE_FACTOR, dtype=torch.float32)).item()
 
 
@@ -177,6 +180,95 @@ def _covis_pairs(m: MapState, order: np.ndarray, min_weight: int):
     return iu[0][hit], iu[1][hit]
 
 
+def optimize_essential_graph_merge(
+    m: MapState,
+    free_ids,
+    R_snap: np.ndarray,
+    t_snap: np.ndarray,
+    mode: str,
+    covis_edge_weight: int = 100,
+    iters: int = 12,
+    device: torch.device | str = "cuda",
+):
+    """Merge-variant essential graph (the merge overload of
+    Optimizer::OptimizeEssentialGraph): after a weld and its welding BA have
+    corrected the window around the seam, this pose graph carries the
+    correction to the rest of the merged-in map.
+
+    Vertices: every valid keyframe, seeded at its current pose. Fixed: all but
+    `free_ids` (the source map's keyframes outside the window). Edge
+    measurements come from the pre-welding-BA snapshot (R_snap, t_snap), the
+    merged-in map's internally consistent geometry. Landmarks first observed
+    by a free keyframe ride its correction. The solve is the exact-shape
+    `pose_graph.optimize_pose_graph` on `device` (ROADMAP R4)."""
+    free_ids = [int(x) for x in free_ids]
+    free_set = set(free_ids)
+    valid = np.nonzero(m.kf_valid)[0]
+    if len(valid) < 3 or not free_set:
+        return
+    order = valid[np.argsort(m.kf_frame_id[valid], kind="stable")]
+    K = len(order)
+    slot = {int(kf): i for i, kf in enumerate(order)}
+
+    ei, ej, es, eR, et = [], [], [], [], []
+
+    def add_edge_snap(a, b):
+        if a not in free_set and b not in free_set:
+            return  # both ends fixed: no information
+        sm, Rm, tm = _sim3_mul_np(1.0, R_snap[b], t_snap[b], *_sim3_inv_np(1.0, R_snap[a], t_snap[a]))
+        ei.append(slot[a]); ej.append(slot[b])  # noqa: E702
+        es.append(float(sm)); eR.append(Rm); et.append(tm)  # noqa: E702
+
+    # The temporal chain over the merged map and the covisibility edges.
+    for a, b in zip(order[:-1], order[1:]):
+        add_edge_snap(int(a), int(b))
+    for ii, jj in zip(*_covis_pairs(m, order, covis_edge_weight)):
+        add_edge_snap(int(order[ii]), int(order[jj]))
+    if not ei:
+        return
+
+    fixed = np.ones(K, bool)
+    for f in free_ids:
+        if f in slot:
+            fixed[slot[f]] = False
+    dev = torch.device(device)
+
+    def put(x, dtype=None):
+        a = np.ascontiguousarray(x) if dtype is None else np.ascontiguousarray(x, dtype)
+        return torch.from_numpy(a).to(dev)
+
+    res = pose_graph.optimize_pose_graph(
+        put(np.ones(K, np.float32)), put(m.kf_R[order]), put(m.kf_t[order]), put(np.ones(K, bool)), put(fixed),
+        put(np.asarray(ei), np.int64), put(np.asarray(ej), np.int64), put(np.asarray(es), np.float32),
+        put(np.stack(eR), np.float32), put(np.stack(et), np.float32), put(np.ones(len(ei)), np.float32),
+        put(pose_graph.FREE_DIMS[mode]), iters=iters,
+    )
+    s_n, R_n, t_n, cost = fetch_block((res.s, res.R, res.t, res.cost))
+
+    # Re-anchor the landmarks of free keyframes: X' = S_new^-1(S_snap(X)).
+    lm_ids = np.nonzero(m.lm_valid)[0]
+    if len(lm_ids):
+        obs_sub = m.obs[order][:, lm_ids]
+        seen = obs_sub.any(axis=0)
+        first_slot = np.argmax(obs_sub, axis=0)
+        for sl in np.unique(first_slot[seen]):
+            i = int(order[sl])
+            if i not in free_set:
+                continue
+            selm = lm_ids[(first_slot == sl) & seen]
+            pc = m.lm_pos[selm] @ R_snap[i].T + t_snap[i]
+            sinv, Rinv, tinv = _sim3_inv_np(s_n[sl], R_n[sl], t_n[sl])
+            m.lm_pos[selm] = (pc @ Rinv.T) * sinv + tinv
+
+    # The optimized poses of the free set back as SE(3) (t / s).
+    for f in free_ids:
+        if f in slot:
+            sl = slot[f]
+            m.kf_R[f] = R_n[sl]
+            m.kf_t[f] = t_n[sl] / s_n[sl]
+    log.info("merge essential graph: %d free / %d KFs, %d edges, cost %.3f", len(free_ids), K, len(ei), float(cost))
+
+
 class LoopCloser:
     def __init__(
         self,
@@ -193,8 +285,10 @@ class LoopCloser:
         self.cfg = LoopConfig() if cfg is None else cfg
         self.kf_store = None  # shared DeviceKFStore (set by the Tracker)
         self.last_loop_kf = -10**9
-        self.pending: tuple | None = None  # (candidate, count, (s, R, t), kf)
+        # (candidate gid, count, (s, R, t), kf)
+        self.pending: tuple | None = None
         self.n_loops_closed = 0
+        self.n_merges = 0  # merge proposals handed to the tracker
         # One dict per closed loop: frame ids and the corrective scale.
         self.events: list[dict] = []
         # Whole-map BA after a correction, bound by the Tracker; called as
@@ -219,11 +313,23 @@ class LoopCloser:
         a = np.ascontiguousarray(x) if dtype is None else np.ascontiguousarray(x, dtype)
         return torch.from_numpy(a).to(self.device)
 
+    def on_merge(self, src_map_id: int, dst_map_id: int, kf_remap: dict):
+        """Carry the loop edges of a merged-away map over to its destination."""
+        edges = []
+        for (mid, i, j, S) in self.loop_edges:
+            if mid == src_map_id:
+                if i in kf_remap and j in kf_remap:
+                    edges.append((dst_map_id, kf_remap[i], kf_remap[j], S))
+            else:
+                edges.append((mid, i, j, S))
+        self.loop_edges = edges
+
     # ------------------------------------------------------------------
 
     def _dev_rows(self, k: int, m_c: MapState):
         """The shared device keyframe store with row k in sync, or None when
-        no store is attached (callers then upload host rows)."""
+        the keyframe lives in a map that is not active (a merge candidate) or
+        no store is attached: callers then upload the map's host rows."""
         st = self.kf_store
         if st is None or m_c is not self.m:
             return None
@@ -264,8 +370,9 @@ class LoopCloser:
         """Detect and (maybe) correct a loop at the new keyframe k, then
         register it in the database (the reference adds the current keyframe
         at the end of each detection attempt). `detect=False` re-validates a
-        pending hypothesis only. Returns None (a merge proposal would be
-        returned here: ROADMAP A12)."""
+        pending hypothesis only. Returns None, or a merge proposal
+        (dst_map_id, candidate, (s, R, t), src_map_id, k) for the tracker to
+        execute."""
         m = self.m
         bits = self._kf_bits(k)
         hist = self.kfdb.histogram(bits, m.kf_feat_valid[k])
@@ -280,7 +387,7 @@ class LoopCloser:
             ):
                 proposal = self._detect_and_correct(k, bits, hist, fresh=detect)
         finally:
-            self.kfdb.add(k, bits, m.kf_feat_valid[k], hist=hist)
+            self.kfdb.add(row_of(m.map_id, k, m.cfg.max_keyframes), bits, m.kf_feat_valid[k], hist=hist)
         return proposal
 
     # ------------------------------------------------------------------
@@ -288,42 +395,56 @@ class LoopCloser:
     # ------------------------------------------------------------------
 
     def _detect_and_correct(self, k: int, bits: np.ndarray, hist: np.ndarray | None = None, fresh: bool = True):
-        """Detections in the Atlas's one map are corrected in place (a second
-        map, and so a merge proposal, is ROADMAP A12). A hypothesis must
+        """Returns a merge proposal (dst_map_id, c, (s, R, t), src_map_id, k)
+        or None. Detections in the active map are corrected in place (loop
+        closing); detections in another map become merge proposals (the
+        loop-vs-merge split of NewDetectCommonRegions). A hypothesis must
         validate on `consecutive_kfs` consecutive keyframes; each keyframe
         first re-validates the pending one (DetectAndReffineSim3FromLastKF)
         and falls back to a fresh database query when there is none."""
         m = self.m
+        max_k = m.cfg.max_keyframes
+        maps_by_ns = {mm.map_id % MAX_MAPS: mm for mm in self.atlas.maps}
 
-        def act(c, s, R, t, count):
-            """Confirmed enough? correct, else keep pending."""
-            if count >= self.cfg.consecutive_kfs:
-                self.pending = None
+        def act(g, m_c, c, s, R, t, n_proj, count):
+            """Confirmed enough? correct or propose, else keep pending."""
+            if count < self.cfg.consecutive_kfs:
+                self.pending = (int(g), count, (float(s), np.asarray(R), np.asarray(t)), k)
+                return None
+            self.pending = None
+            if m_c is m:
                 self._correct_loop(k, c, s, R, t)
-                return
-            self.pending = (int(c), count, (float(s), np.asarray(R), np.asarray(t)), k)
+                return None
+            self.n_merges += 1
+            log.info("map merge detected: KF %d (map %d) -> KF %d (map %d), %d proj",
+                     k, m.map_id, c, m_c.map_id, n_proj)
+            # The proposal crosses a thread boundary (the track thread
+            # executes it at its next frame): maps are named by id, never by
+            # Atlas index, which spawns and merges reorder.
+            return m_c.map_id, c, (s, R, t), m.map_id, k
 
         # 1) Re-validate the pending hypothesis by propagating its Sim(3)
         # through the tracked camera motion and re-counting guided
         # projection matches.
         if self.pending is not None:
-            c, count, (sp, Rp, tp), last_k = self.pending
-            if m.kf_valid[last_k] and m.kf_valid[c]:
+            g, count, (sp, Rp, tp), last_k = self.pending
+            ns, c = split_row(g, max_k)
+            m_c = maps_by_ns.get(ns)
+            if m_c is not None and m.kf_valid[last_k] and m_c.kf_valid[c]:
                 # S_k'c = T_k'k o S_kc with T_k'k from the current poses.
                 Tk = _sim3_mul_np(1.0, m.kf_R[k], m.kf_t[k], *_sim3_inv_np(1.0, m.kf_R[last_k], m.kf_t[last_k]))
                 s2, R2, t2 = _sim3_mul_np(*Tk, sp, Rp, tp)
-                n_proj = self._projection_matches(k, c, s2, R2, t2, m)
+                n_proj = self._projection_matches(k, c, s2, R2, t2, m_c)
                 if n_proj >= self.cfg.min_proj_weak:
                     count += 1
                     if count >= self.cfg.consecutive_kfs:
                         # Refine once more at full strength before acting;
                         # keep the propagated Sim(3) if the refinement is
                         # rejected.
-                        res = self._validate_candidate(k, c, m)
+                        res = self._validate_candidate(k, c, m_c)
                         if res is not None:
                             s2, R2, t2, n_proj = res
-                    act(c, s2, R2, t2, count)
-                    return None
+                    return act(g, m_c, c, s2, R2, t2, n_proj, count)
                 log.info("pending loop hypothesis KF %d -> %d dropped at KF %d (%d proj)", last_k, c, k, n_proj)
             # The hypothesis did not survive this keyframe: drop it and fall
             # through to a fresh detection in the same call.
@@ -335,32 +456,36 @@ class LoopCloser:
         # k itself (a temporally distant covisible keyframe is an already
         # verified loop whose drift still needs the correction).
         recent = np.nonzero(m.kf_valid & (m.kf_frame_id > m.kf_frame_id[k] - 3 * 30))[0]
-        exclude = np.asarray([k] + recent.tolist())
+        exclude = np.asarray([row_of(m.map_id, x, max_k) for x in [k, *recent]])
         if hist is None:
             return None
 
-        def covis(c):
-            if not m.kf_valid[c]:
+        def covis_gids(g):
+            ns2, c2 = split_row(g, max_k)
+            mm = maps_by_ns.get(ns2)
+            if mm is None or not mm.kf_valid[c2]:
                 return []
-            return m.covisible_keyframes(int(c), min_weight=1, top=10)[0].tolist()
+            return [row_of(ns2, x, max_k) for x in mm.covisible_keyframes(c2, min_weight=1, top=10)[0]]
 
-        cands, scores = self.kfdb.query_groups(hist, covis, exclude, n_best=3)
+        gids, scores = self.kfdb.query_groups(hist, covis_gids, exclude, n_best=3)
         # Relative validation floor (LoopConfig.loop_floor_z).
         floor = self.cfg.min_candidate_score
         adaptive = self.kfdb.adaptive_floor(hist, exclude=exclude, z=self.cfg.loop_floor_z)
         if adaptive is not None:
             floor = max(self.cfg.min_floor, adaptive)
-        for c, sc in zip(cands, scores):
-            c = int(c)
-            if float(sc) < floor or not m.kf_valid[c]:
+        for g, sc in zip(gids, scores):
+            if float(sc) < floor:
                 continue  # aliasing noise: not worth a validation
-            res = self._validate_candidate(k, c, m)
+            ns, c = split_row(g, max_k)
+            m_c = maps_by_ns.get(ns)
+            if m_c is None or not m_c.kf_valid[c]:
+                continue
+            res = self._validate_candidate(k, c, m_c)
             if res is None:
                 continue
             s, R, t, n_proj = res
             if n_proj >= self.cfg.min_proj_weak:
-                act(c, s, R, t, 1)
-                return None
+                return act(g, m_c, c, s, R, t, n_proj, 1)
         self.pending = None
         return None
 

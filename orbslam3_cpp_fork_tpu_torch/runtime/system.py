@@ -6,11 +6,12 @@ and `track_rgbd` calls with input pre-processing (RGB -> gray, resize with
 the camera scaled to match; for an unrectified pinhole stereo rig,
 rectification by `remap_bilinear` on the tracker's device with maps
 computed once on the host), state queries, trajectory export in TUM/KITTI
-formats and `shutdown`, which flushes and stops the mapping and
-loop-closing workers and joins a global BA in flight. Loop closing is on by
-default, as in the reference. Inertial input, the viewers and Atlas
-save/load raise `NotImplementedError` naming their ROADMAP item, as the
-tracker does.
+formats, Atlas checkpoints (`save_atlas`, `load_atlas=`, and the settings'
+System.LoadAtlasFromFile / SaveAtlasToFile), sequence changes and resets,
+and `shutdown`, which flushes and stops the mapping and loop-closing workers
+and joins a global BA in flight. Loop closing is on by default, as in the
+reference. Inertial input and the viewers raise `NotImplementedError`
+naming their ROADMAP item, as the tracker does.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from ..ops.orb import OrbParams
 from ..utils import timers as timers_mod
 from ..utils.settings import Settings, load_settings
 from ..utils.trajectory import write_kitti, write_tum
+from . import checkpoint
 from .tracker import Sensor, Tracker, TrackerConfig, TrackState
 
 log = logging.getLogger("orbslam3_torch.system")
@@ -65,8 +67,6 @@ class System:
             raise _not_ported(f"sensor {sensor.name}", "A13")
         if use_viewer or live_viewer:
             raise _not_ported("the viewers", "A15")
-        if load_atlas or settings.load_atlas or settings.save_atlas:
-            raise _not_ported("Atlas save/load", "A12")
         self.settings = settings
         self.sensor = sensor
         s = settings
@@ -141,6 +141,8 @@ class System:
         self.timers = timers_mod.StageTimers()
         self._shutdown = False
         self._last_big_change = 0
+        if load_atlas or s.load_atlas:
+            self._load_atlas(load_atlas or s.load_atlas)
 
     def _legacy_rectification(self, width: int, height: int):
         """The pre-1.0 LEFT./RIGHT. K, D, R, P blocks: Camera.* already holds
@@ -240,11 +242,38 @@ class System:
     def get_tracking_state(self) -> TrackState:
         return self.tracker.state
 
+    def change_dataset(self):
+        """System::ChangeDataset: call between the sequences of a
+        multi-sequence run."""
+        self.tracker.new_dataset()
+
+    def reset(self):
+        """System::Reset: stop the workers, drop everything and start over
+        with a fresh tracker of the same configuration and device."""
+        tr = self.tracker
+        self._stop_workers()
+        self.tracker = Tracker(tr.cfg, tr.device)
+        self._last_big_change = 0
+
+    def reset_active_map(self):
+        """System::ResetActiveMap: rebuild a small active map, or keep an
+        established one and start a fresh map."""
+        self.tracker._spawn_or_reset_map()
+
+    @property
+    def atlas(self):
+        return self.tracker.atlas
+
     def is_lost(self) -> bool:
         return self.tracker.state in (TrackState.LOST, TrackState.RECENTLY_LOST)
 
     def is_shutdown(self) -> bool:
         return self._shutdown
+
+    @property
+    def n_merges(self) -> int:
+        lc = self.tracker.loop_closer
+        return lc.n_merges if lc is not None else 0
 
     @property
     def n_loops_closed(self) -> int:
@@ -303,18 +332,75 @@ class System:
         _, Twc = self.tracker.export_trajectory()
         write_kitti(path, Twc)
 
+    # ------------------------------------------------------------------
+    # Atlas persistence (SaveAtlas / LoadAtlas)
+    # ------------------------------------------------------------------
+
     def save_atlas(self, path: str):
-        raise _not_ported("Atlas save/load", "A12")
+        """Write every map of the Atlas to one .npz (runtime/checkpoint.py),
+        bound to the retrieval codebook's seed and size."""
+        self.tracker.flush_mapping()
+        kfdb = self.tracker.kfdb
+        extra = {"sensor": self.sensor.name, "kfdb_seed": kfdb._seed, "kfdb_n_words": kfdb.n_words}
+        with self.tracker.map_lock:
+            checkpoint.save_atlas(self.tracker.atlas, path, extra=extra)
+        log.info("atlas saved to %s", path)
+
+    def _load_atlas(self, path: str):
+        """Resume from a checkpoint: the Atlas replaces the tracker's, the
+        keyframe database is rebuilt from the stored descriptors by (map,
+        slot), the device keyframe store forgets its rows (the loaded maps
+        reuse ids and keyframe generations: ROADMAP R13), and tracking
+        resumes LOST, by relocalization."""
+        tr = self.tracker
+        atlas, extra = checkpoint.load_atlas(path)
+        if extra.get("kfdb_seed") is not None and (
+            extra["kfdb_seed"] != tr.kfdb._seed or extra["kfdb_n_words"] != tr.kfdb.n_words
+        ):
+            # The reference refuses an atlas bound to another vocabulary.
+            raise ValueError("atlas was built with a different retrieval codebook")
+        tr.flush_mapping()
+        with tr.map_lock:
+            tr.atlas = atlas
+            if tr.loop_closer is not None:
+                tr.loop_closer.atlas = atlas
+            tr._kf_store.invalidate()
+            tr._dev_local = None
+            tr.kfdb.clear()
+            for m in atlas.maps:
+                for k in np.nonzero(m.kf_valid)[0]:
+                    bits = np.unpackbits(m.kf_desc[k].view(np.uint8), axis=-1, bitorder="little").astype(np.int8)
+                    tr.kfdb.add(tr._gid(int(k), m.map_id), bits, m.kf_feat_valid[k])
+        tr.state = TrackState.LOST
+        tr.last = None
+        tr.init_ref = None
+        log.info("atlas loaded from %s: %d maps, active map %d (%d KFs)",
+                 path, atlas.n_maps(), atlas.active.map_id, atlas.active.n_keyframes())
 
     # ------------------------------------------------------------------
     # Shutdown
     # ------------------------------------------------------------------
 
-    def shutdown(self) -> dict:
+    def shutdown(self, save_atlas_path: str | None = None) -> dict:
         """System::Shutdown: retire the frames in flight, flush and stop the
         mapping worker, then the loop worker, then join the global BA (a
         failure of any of their threads is re-raised here, after every thread
-        has been stopped), log and return the timing stats."""
+        has been stopped), write the Atlas if asked (`save_atlas_path` or the
+        settings' System.SaveAtlasToFile), log and return the timing stats."""
+        self._stop_workers()
+        if save_atlas_path or self.settings.save_atlas:
+            self.save_atlas(save_atlas_path or self.settings.save_atlas)
+        tr = self.tracker
+        stats = {**self.timers.summary(), **tr.timers.summary()}
+        for name, s in stats.items():
+            log.info("%-16s mean %.2f ms  p95 %.2f ms  (%d calls)", name, s["mean_ms"], s["p95_ms"], s["count"])
+        self._shutdown = True
+        return stats
+
+    def _stop_workers(self):
+        """Retire the frames in flight, stop the mapping and loop workers and
+        join the global BA, re-raising the first failure of their threads
+        after every one has been stopped."""
         tr = self.tracker
         try:
             tr._drain_pipeline()
@@ -330,8 +416,3 @@ class System:
                         loop_worker.stop()
                 finally:
                     tr._join_global_ba()
-        stats = {**self.timers.summary(), **tr.timers.summary()}
-        for name, s in stats.items():
-            log.info("%-16s mean %.2f ms  p95 %.2f ms  (%d calls)", name, s["mean_ms"], s["p95_ms"], s["count"])
-        self._shutdown = True
-        return stats

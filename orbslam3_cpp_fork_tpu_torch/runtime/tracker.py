@@ -27,9 +27,13 @@ coordinate and a depth per feature, initialize the map from one frame, take
 the split-phase path with stereo rows in the pose optimization, seed close
 points at every keyframe and close loops in SE(3). Inertial input raises
 `NotImplementedError` at construction, naming the ROADMAP item. The Atlas
-holds one map: where the reference spawns a new one after `reloc_patience`
-failed relocalizations (A12), the port stays LOST and counts the frame in
-`n_reloc_patience_exceeded`.
+holds many maps: past `reloc_patience` failed relocalizations (or at a frame
+older than its predecessor) a map of fewer than 10 keyframes is reset and a
+larger one kept while a fresh one starts (`_spawn_or_reset_map`); when the
+loop closer later validates a revisit of a kept map, `_execute_merge` welds
+the active map into it through the validated Sim(3), fuses the seam, runs a
+welding BA and the merge essential graph. Trajectory records of a merged
+map follow its keyframes through `_kf_alias`.
 
 The host side is numpy, as in the reference; device work runs on
 `Tracker.device` in f32 (window BA included), each stage fetches its
@@ -68,6 +72,7 @@ from ..ops.image import N_LEVELS, SCALE_FACTOR
 from ..ops.image import scale_pow as _scale_pow
 from ..utils import lie
 from ..utils.timers import StageTimers
+from .keyframe_database import MAX_MAPS, KeyFrameDatabase, row_of, split_row
 
 log = logging.getLogger("orbslam3_torch.tracker")
 
@@ -640,6 +645,13 @@ class DeviceKFStore:
         self.depth = torch.zeros((K, N), dtype=torch.float32, device=device)
         self.ur = torch.zeros((K, N), dtype=torch.float32, device=device)
 
+    def invalidate(self) -> None:
+        """Forget every row: the next `sync` uploads what it is asked for.
+        Needed where a map keeps its id while its keyframe generations
+        restart (a reset map, a loaded Atlas: ROADMAP R13)."""
+        self.gen[:] = -1
+        self.map_id = -1
+
     def sync(self, m, ks) -> None:
         """Ensure rows `ks` mirror map `m` (call under the map lock)."""
         if m.map_id != self.map_id:
@@ -718,8 +730,7 @@ class Tracker:
         # re-acquisition, LOST without relocalization).
         self.n_lost_frames = 0
         # Consecutive failed relocalizations in LOST; past `reloc_patience`
-        # the reference spawns a new map (ROADMAP A12), the port stays LOST
-        # and counts the frame.
+        # the active map is reset or a new one spawned, and the event counted.
         self.lost_frames = 0
         self.reloc_patience = 12
         self.n_reloc_patience_exceeded = 0
@@ -746,13 +757,12 @@ class Tracker:
         # Per-KF scene median depth cache (triangulation baseline gate).
         self._kf_med_depth = np.zeros(cfg.map_cfg.max_keyframes, np.float32)
         self._kf_med_depth_ver = (-1, -1)
-        # Place recognition: one keyframe database with a row per keyframe
-        # slot of the Atlas's one map (a second map is ROADMAP A12), and the
-        # loop closer sharing the device keyframe store and the map lock.
-        from .keyframe_database import KeyFrameDatabase
+        # Place recognition: one keyframe database with a row per (map,
+        # keyframe slot) (`_gid`), and the loop closer sharing the device
+        # keyframe store and the map lock.
         from .loop_closing import LoopCloser, LoopConfig
 
-        self.kfdb = KeyFrameDatabase(cfg.map_cfg.max_keyframes, self.device)
+        self.kfdb = KeyFrameDatabase(MAX_MAPS * cfg.map_cfg.max_keyframes, self.device)
         self.loop_closer = None
         if cfg.enable_loop_closing:
             self.loop_closer = LoopCloser(
@@ -765,8 +775,11 @@ class Tracker:
         # The big_change_idx this thread last rebased onto (corrections of
         # other threads bump the map's).
         self._seen_change_idx = 0
-        # Keyframe aliases across map merges (ROADMAP A12): empty here.
+        # Keyframe aliases across map merges: (map_id, kf) -> (map_id', kf').
         self._kf_alias: dict[tuple[int, int], tuple[int, int]] = {}
+        # A merge proposal of the loop thread, executed by the track thread
+        # at its next frame: (keyframe, proposal).
+        self._pending_merge: tuple | None = None
         # Correction events (global BA applied or dropped; relocalizations).
         self.events: list[dict] = []
         self._gba_thread: threading.Thread | None = None
@@ -789,6 +802,10 @@ class Tracker:
     def map(self, m: MapState) -> None:
         """Replace the active map (a state loaded through `convert`)."""
         self.atlas.maps[self.atlas.active_idx] = m
+
+    def _gid(self, k: int, map_id: int | None = None) -> int:
+        """Keyframe-database row of (map, keyframe slot)."""
+        return row_of(self.map.map_id if map_id is None else map_id, k, self.cfg.map_cfg.max_keyframes)
 
     # ------------------------------------------------------------------
 
@@ -924,9 +941,21 @@ class Tracker:
             waited = (time.perf_counter() - t_w) * 1e3
             if waited > 2.0:
                 self.frame_causes[frame.frame_id].append(f"map_wait:{waited:.0f}ms" + ("" if done else "+"))
-        # A correction of another thread (loop closure, global BA) rebases
-        # the last frame before this one tracks.
+        # Hand-backs of the loop thread: a merge proposal executes here on
+        # the track thread (it rewrites live tracking state), and a correction
+        # (loop closure, global BA) rebases the last frame before this one
+        # tracks.
+        if self._pending_merge is not None:
+            mk, proposal = self._pending_merge
+            self._pending_merge = None
+            self._drain_pipeline()
+            if self.worker is not None:
+                self.worker.flush()
+            if self.map.kf_valid[mk] and self.last is not None and self.last.R is not None:
+                with self.map_lock:
+                    self._execute_merge(mk, self.last, *proposal)
         self._rebase_after_map_change()
+        self._timestamp_guards(frame.timestamp)
         if self.state == TrackState.OK and self._pipeline_active():
             T = self._track_frame_pipelined(frame)
             self.frame_id += 1
@@ -946,9 +975,8 @@ class Tracker:
                 self.n_lost_frames += 1
                 self.lost_frames += 1
                 if self.lost_frames > self.reloc_patience:
-                    # The reference spawns a new map here (ROADMAP A12).
                     self.n_reloc_patience_exceeded += 1
-                    self.lost_frames = 0
+                    self._spawn_or_reset_map()
         else:
             self._track_frame(frame)
         self.frame_id += 1
@@ -1036,8 +1064,8 @@ class Tracker:
         )
         m.update_landmark_stats(lm_ids)
         frame.lm_idx = cur_lm
-        self.kfdb.add(k1, ref.desc_i8, ref.valid)
-        self.kfdb.add(k2, frame.desc_i8, frame.valid)
+        self.kfdb.add(self._gid(k1), ref.desc_i8, ref.valid)
+        self.kfdb.add(self._gid(k2), frame.desc_i8, frame.valid)
         # Initial BA over both KFs (GlobalBundleAdjustemnt(20) at init).
         self._local_ba([k1, k2], fix=[k1])
         self.ref_kf = k2
@@ -1094,7 +1122,7 @@ class Tracker:
                 ur=frame.ur, depth=frame.depth,
             )
             m.update_landmark_stats(lm_ids)
-        self.kfdb.add(k, frame.desc_i8, frame.valid)
+        self.kfdb.add(self._gid(k), frame.desc_i8, frame.valid)
         self.ref_kf = k
         self.last_kf_frame_id = frame.frame_id
         self.velocity = None
@@ -1598,6 +1626,166 @@ class Tracker:
                 self.last.R = m.kf_R[self.ref_kf].copy()
                 self.last.t = m.kf_t[self.ref_kf].copy()
 
+    def _execute_merge(self, k: int, frame: FrameData, dst_map_id: int, c: int, S_kc, src_map_id_expect: int,
+                       k_expect: int):
+        """Weld the active map into the Atlas map with id `dst_map_id`
+        through the validated Sim(3) S_kc (candidate camera -> current
+        camera), then fuse duplicates and run a welding BA
+        (LoopClosing::MergeLocal). Caller holds the map lock.
+
+        The proposal crossed a thread boundary: everything it names is
+        re-validated against the current Atlas, by map id (spawns and merges
+        between detection and execution reorder `atlas.maps`)."""
+        atlas = self.atlas
+        src = atlas.active
+        dst_idx = next((i for i, mm in enumerate(atlas.maps) if mm.map_id == dst_map_id), None)
+        if (
+            dst_idx is None
+            or src.map_id != src_map_id_expect
+            or k != k_expect
+            or atlas.maps[dst_idx] is src
+            or not src.kf_valid[k]
+            or not atlas.maps[dst_idx].kf_valid[c]
+        ):
+            log.warning("dropping stale merge proposal (map %d -> %d, KF %d -> %d)", src.map_id, dst_map_id, k, c)
+            return
+        with self.timers.span("merge"):
+            dst = atlas.maps[dst_idx]
+            s, R, t = S_kc
+
+            def T(x):
+                return torch.as_tensor(np.asarray(x, np.float32))
+
+            # S_k_w1 = S_kc o T_c_w1; M (w1 -> w2) = T_k_w2^-1 o S_k_w1, in f32.
+            S_k_w1 = lie.sim3_mul(T(s), T(R), T(t), T(1.0), T(dst.kf_R[c]), T(dst.kf_t[c]))
+            Tk_inv = lie.sim3_inv(T(1.0), T(src.kf_R[k]), T(src.kf_t[k]))
+            sM, RM, tM = [x.numpy() for x in lie.sim3_mul(*Tk_inv, *S_k_w1)]
+            src_map_id = src.map_id
+            kf_remap, lm_remap = atlas.merge_into(dst_idx, atlas.active_idx, (float(sM), RM, tM))
+
+            # Aliases for the trajectory records; database rows move to dst.
+            for k_old, k_new in kf_remap.items():
+                self._kf_alias[(src_map_id, k_old)] = (dst.map_id, k_new)
+                self.kfdb.erase(self._gid(k_old, src_map_id))
+            for k_new in kf_remap.values():
+                bits = np.unpackbits(dst.kf_desc[k_new].view(np.uint8), axis=-1, bitorder="little").astype(np.int8)
+                self.kfdb.add(self._gid(k_new, dst.map_id), bits, dst.kf_feat_valid[k_new])
+
+            # Re-anchor the live tracking state in the destination map.
+            k_new = kf_remap[k]
+            self.ref_kf = k_new
+            lm_lut = np.full(self.cfg.map_cfg.max_landmarks, -1, np.int32)
+            for a, b in lm_remap.items():
+                lm_lut[a] = b
+            bound = frame.lm_idx >= 0
+            frame.lm_idx[bound] = lm_lut[frame.lm_idx[bound]]
+            # Frame pose: T_new = T_old o M (then SE(3) through / s).
+            frame.R, frame.t = (
+                (frame.R @ RM).astype(np.float32),
+                ((frame.R @ tM + frame.t) / sM).astype(np.float32),
+            )
+            if self.velocity is not None:
+                Rv, tv = self.velocity
+                self.velocity = (Rv, (tv / sM).astype(np.float32))
+            if self.loop_closer is not None:
+                self.loop_closer.on_merge(src_map_id, dst.map_id, kf_remap)
+
+            # The rigidly welded geometry: the merge essential graph measures its
+            # edges from this internally consistent state.
+            R_snap = dst.kf_R.copy()
+            t_snap = dst.kf_t.copy()
+
+            # Fuse duplicates around the weld, then the welding BA with the
+            # matched map's keyframe as the gauge.
+            nb, _ = dst.covisible_keyframes(k_new, min_weight=1, top=10)
+            window = np.concatenate([[k_new], nb]).astype(np.int64)
+            if self.loop_closer is not None:
+                self.loop_closer._search_and_fuse(window, c)
+            if dst._imu_calib is not None and dst.imu_stage >= 1:
+                self._merge_inertial_ba(k_new, c)
+            else:
+                self._local_ba([int(x) for x in window], fix=[c])
+                # Carry the weld's correction to the rest of the merged-in map.
+                from .loop_closing import optimize_essential_graph_merge
+
+                win = {int(x) for x in window}
+                rest = [v for v in kf_remap.values() if v not in win]
+                if len(rest) >= 3:
+                    mode = "se3" if self.cfg.sensor != Sensor.MONOCULAR else "sim3"
+                    with self.timers.span("merge_eg"):
+                        optimize_essential_graph_merge(dst, rest, R_snap, t_snap, mode, device=self.device)
+            # The live frame follows its welded and optimized keyframe.
+            frame.R = dst.kf_R[k_new].copy()
+            frame.t = dst.kf_t[k_new].copy()
+            self.velocity = None
+            self.events.append({"kind": "merge", "frame": int(frame.frame_id), "kf": int(k), "src_map": src_map_id,
+                                "dst_map": int(dst.map_id), "match": int(c), "scale": float(sM)})
+            log.info("map merge complete: now tracking in map %d (%d KFs, %d lms)",
+                     dst.map_id, dst.n_keyframes(), dst.n_landmarks())
+
+    def _merge_inertial_ba(self, k_new: int, c: int):
+        """Optimizer::MergeInertialBA: a visual-inertial BA around the seam.
+        Not ported yet."""
+        raise NotImplementedError("the inertial merge BA (MergeInertialBA) is not ported yet (ROADMAP A13)")
+
+    def _timestamp_guards(self, ts: float):
+        """The timestamp guards of Tracking::Track: a frame older than its
+        predecessor spawns a fresh Atlas map (an established map is kept) or
+        resets a small one. (The inertial 1 s gap is ROADMAP A13.)"""
+        if self.state is TrackState.NO_IMAGES_YET or self.last is None:
+            return
+        prev = self.last.timestamp
+        if ts < prev:
+            log.warning("frame timestamp %.6f older than previous %.6f; new map", ts, prev)
+            self._spawn_or_reset_map()
+
+    def new_dataset(self):
+        """System::ChangeDataset: close out the current sequence (a small map
+        is rebuilt, an established one kept and a fresh map started) and
+        forget the last frame, so that the next sequence's first frame does
+        not trip the timestamp guard."""
+        self._spawn_or_reset_map()
+        self.last = None
+
+    def _spawn_or_reset_map(self):
+        """Unrecoverable loss: a map of fewer than 10 keyframes is discarded
+        and rebuilt (Tracking::ResetActiveMap); an established one is kept in
+        the Atlas and a fresh one started (CreateMapInAtlas), to be welded
+        back by a later merge. The reset map keeps its id and its keyframe
+        generations restart, so the device keyframe store and the local-map
+        snapshot are invalidated (ROADMAP R13)."""
+        self.flush_mapping()
+        self._pending_merge = None
+        self.lost_frames = 0
+        m = self.map
+        if m.n_keyframes() < 10:
+            log.warning("resetting active map (%d KFs)", m.n_keyframes())
+            with self.map_lock:
+                for k in np.nonzero(m.kf_valid)[0]:
+                    self.kfdb.erase(self._gid(int(k)))
+                fresh = MapState(self.cfg.map_cfg, map_id=m.map_id)
+                fresh._imu_calib = self.atlas.imu_calib
+                self.atlas.maps[self.atlas.active_idx] = fresh
+                self._kf_store.invalidate()
+        else:
+            log.warning("spawning new Atlas map (keeping map %d: %d KFs)", m.map_id, m.n_keyframes())
+            new = self.atlas.create_new_map()
+            shared = [mm.map_id for mm in self.atlas.maps
+                      if mm is not new and mm.map_id % MAX_MAPS == new.map_id % MAX_MAPS]
+            if shared:
+                log.warning("map %d shares its keyframe-database rows with map(s) %s (%d map namespaces, "
+                            "ROADMAP R16): each overwrites the other's rows", new.map_id, shared, MAX_MAPS)
+        self._dev_local = None
+        self.state = TrackState.NO_IMAGES_YET
+        self.init_ref = None
+        self.velocity = None
+        self.ref_kf = -1
+        self.n_kf_inserted = 0
+        self._kf_med_depth[:] = 0.0  # slots reused by the fresh map
+        # A new scene is coming: re-train the place-recognition vocabulary
+        # from the whole corpus (KeyFrameDatabase.refresh_codebook).
+        self.kfdb.refresh_codebook()
+
     # ------------------------------------------------------------------
     # Split-phase tracking and the loss ladder
     # ------------------------------------------------------------------
@@ -1885,13 +2073,19 @@ class Tracker:
         hist = self.kfdb.histogram(frame.desc_i8, frame.valid)
         db_cand = []
         if hist is not None:
+            max_k = self.cfg.map_cfg.max_keyframes
+            ns = m.map_id % MAX_MAPS
 
-            def covis(c):
-                if not m.kf_valid[c]:
+            def covis_gids(g):
+                mid, c2 = split_row(g, max_k)
+                if mid != ns or not m.kf_valid[c2]:
                     return []
-                return m.covisible_keyframes(int(c), min_weight=1, top=10)[0].tolist()
+                return [row_of(mid, x, max_k) for x in m.covisible_keyframes(c2, min_weight=1, top=10)[0]]
 
-            db_cand = [int(c) for c in self.kfdb.query_groups(hist, covis, n_best=8, min_score=0.02)[0]]
+            # Only candidates in the active map: recovery in another map goes
+            # through a merge, not relocalization.
+            gids = self.kfdb.query_groups(hist, covis_gids, n_best=8, min_score=0.02)[0]
+            db_cand = [c for ns_c, c in (split_row(g, max_k) for g in gids) if ns_c == ns]
         # Candidates from the database, then the most recent keyframes.
         recency = cand[np.argsort(-m.kf_frame_id[cand], kind="stable")][:5]
         cand = list(dict.fromkeys(db_cand + recency.tolist()))
@@ -2186,20 +2380,27 @@ class Tracker:
 
     def _loop_step(self, k: int, map_ref: MapState, frame: FrameData | None = None):
         """One LoopClosing iteration for keyframe k: detection, validation,
-        correction, database registration. On the LoopWorker thread
-        (frame=None) the live frame learns of a correction through
-        big_change_idx and `_rebase_after_map_change`; inline, a correction
-        re-anchors `frame` on its own corrected keyframe here."""
+        correction or merge proposal, database registration. On the
+        LoopWorker thread (frame=None) the live frame learns of a correction
+        through big_change_idx and `_rebase_after_map_change`, and a merge
+        proposal is parked in `_pending_merge` for the track thread; inline,
+        a merge executes here and a correction re-anchors `frame` on its own
+        corrected keyframe."""
         m = map_ref
         if m is not self.map or not m.kf_valid[k]:
             return
         if self.loop_closer is None:
-            self.kfdb.add(k, self._kf_bits(k), m.kf_feat_valid[k])
+            self.kfdb.add(self._gid(k), self._kf_bits(k), m.kf_feat_valid[k])
             return
         big0 = m.big_change_idx
         with self.timers.span("map_loop"):
-            self.loop_closer.process_keyframe(k)
-        if m.big_change_idx != big0 and frame is not None:
+            merge = self.loop_closer.process_keyframe(k)
+        if merge is not None:
+            if self.worker is not None:
+                self._pending_merge = (k, merge)
+            else:
+                self._execute_merge(k, frame, *merge)
+        elif m.big_change_idx != big0 and frame is not None:
             frame.R = m.kf_R[k].copy()
             frame.t = m.kf_t[k].copy()
             self.velocity = None
@@ -2507,7 +2708,7 @@ class Tracker:
                         (R_cr @ R_rp).astype(np.float32),
                         (R_cr @ t_rp + t_cr).astype(np.float32),
                     )
-        self.kfdb.erase(kf)
+        self.kfdb.erase(self._gid(kf))
         self._kf_med_depth[kf] = 0.0  # slot may be reused
         m.remove_keyframe(kf)
 
@@ -2822,6 +3023,8 @@ class Tracker:
         Rk, tk = m.kf_R[k_new], m.kf_t[k_new]
         for i in range(self._traj_anchor_ptr, len(self.trajectory)):
             fid, t, map_id, kref, R_cr, t_cr = self.trajectory[i]
+            while (map_id, kref) in self._kf_alias:
+                map_id, kref = self._kf_alias[(map_id, kref)]
             if map_id != m.map_id or not m.kf_valid[kref]:
                 continue
             gap = abs(fid - int(m.kf_frame_id[kref]))
@@ -2853,14 +3056,19 @@ class Tracker:
         )
 
     def export_trajectory(self):
-        """Return (timestamps, Twc 4x4 array) in the world frame, TUM-style
-        camera-to-world (SaveTrajectoryTUM semantics). Drains the pipeline
-        and the mapping worker first."""
+        """Return (timestamps, Twc 4x4 array), TUM-style camera-to-world
+        (SaveTrajectoryTUM semantics), for the frames of every map of the
+        Atlas, each in its own map's world frame: a record of a merged-away
+        map follows its keyframe's aliases into the map it was welded into.
+        Drains the pipeline and the workers first."""
         self.flush_mapping()
         ts, poses = [], []
-        m = self.map
+        maps_by_id = {m.map_id: m for m in self.atlas.maps}
         for fid, t, map_id, k, R_cr, t_cr in self.trajectory:
-            if map_id != m.map_id or not m.kf_valid[k]:
+            while (map_id, k) in self._kf_alias:
+                map_id, k = self._kf_alias[(map_id, k)]
+            m = maps_by_id.get(map_id)
+            if m is None or not m.kf_valid[k]:
                 continue
             R_cw = R_cr @ m.kf_R[k]
             t_cw = R_cr @ m.kf_t[k] + t_cr

@@ -352,3 +352,51 @@ def test_remap_on_card_matches_cpu(dev):
     ref = image.remap_bilinear(*(torch.from_numpy(a) for a in (img, mx, my))).numpy()
     got = image.remap_bilinear(*(torch.from_numpy(a).to(dev) for a in (img, mx, my))).cpu().numpy()
     assert np.abs(got - ref).max() <= 1e-4 * 255, "tolerance: 1e-4 of the gray range"
+
+
+def test_merge_on_card_matches_cpu(dev):
+    """`_execute_merge` from tests/merge_rig.py's two-map state on the card
+    and on the CPU: the fuse's bindings exact; after the welding BA and the
+    merge essential graph R within 1e-4, Xw within 1e-3 (the window BA's card
+    tolerances), t within 2e-4 (near convergence the LM accept test of the
+    welding BA takes another step on the card than on the CPU, as between
+    the two implementations in tests/test_torch_merge.py: 1.5e-4 on the
+    merged keyframes, NVIDIA H100), the live pose within 1e-4."""
+    import merge_rig
+
+    from orbslam3_cpp_fork_tpu_torch.runtime import tracker as tt
+
+    scene, atlas_np, S_kc = merge_rig.two_map_state()
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        trk = merge_rig.loaded_port_tracker(scene, atlas_np, d)
+        f = merge_rig.live_frame(tt, atlas_np["maps"][1], merge_rig.K_B)
+        trk._execute_merge(merge_rig.K_B, f, 0, merge_rig.C_A, S_kc, 1, merge_rig.K_B)
+        out[d.type] = (trk.map, f, trk._kf_alias)
+    (a, fa, ala), (b, fb, alb) = out["cuda"], out["cpu"]
+    assert ala == alb and len(ala) == 14 and a.n_keyframes() == b.n_keyframes() == 26
+    assert np.array_equal(a.kf_lm_idx, b.kf_lm_idx), "bindings after the fuse: tolerance exact"
+    assert np.abs(a.kf_R - b.kf_R).max() <= 1e-4, "tolerance: R within 1e-4 of the CPU"
+    assert np.abs(a.kf_t - b.kf_t).max() <= 2e-4, "tolerance: t within 2e-4 of the CPU"
+    assert np.abs(a.lm_pos - b.lm_pos)[a.lm_valid].max() <= 1e-3, "tolerance: Xw within 1e-3 of the CPU"
+    assert np.abs(fa.t - fb.t).max() <= 1e-4 and np.abs(fa.R - fb.R).max() <= 1e-4, "tolerance: live pose 1e-4"
+
+
+@pytest.mark.parametrize("mode", ["sim3", "se3"])
+def test_merge_essential_graph_on_card_matches_cpu(dev, mode):
+    import merge_rig
+
+    from orbslam3_cpp_fork_tpu_torch.runtime.loop_closing import optimize_essential_graph_merge
+
+    maps = []
+    for d in (dev, "cpu"):
+        m = merge_rig.line_map()
+        R_snap, t_snap = m.kf_R.copy(), m.kf_t.copy()
+        for k in (10, 11):
+            m.kf_t[k] -= np.array([0.0, 0.3, 0.0], np.float32)
+        optimize_essential_graph_merge(m, list(range(2, 10)), R_snap, t_snap, mode, covis_edge_weight=8, device=d)
+        maps.append(m)
+    a, b = maps
+    assert np.abs(a.kf_t - b.kf_t).max() <= 1e-4 and np.abs(a.kf_R - b.kf_R).max() <= 1e-4, "tolerance: 1e-4"
+    assert np.abs(a.lm_pos - b.lm_pos).max() <= 1e-3, "tolerance: landmarks within 1e-3 of the CPU"
+    assert -a.kf_R[9].T @ a.kf_t[9] @ np.array([0, 1, 0]) > 0.15, "the correction reached the free keyframes"

@@ -190,14 +190,20 @@ def test_confirmation_streak_matches_the_reference(script, n_closed):
         assert got.pending[:2] == ref.pending[:2] and got.pending[3] == ref.pending[3]
 
 
-def test_a_merge_proposal_raises():
-    """A merge proposal needs a hypothesis in a second map. The port's Atlas
-    refuses to make one (its keyframe database rows are the one map's slots),
-    and refuses the merge itself: both name ROADMAP A12."""
+def test_the_atlas_creates_and_merges_maps():
+    """A merge proposal needs a hypothesis in a second map: the Atlas makes
+    one (`create_new_map`, a new id, active) and welds it back
+    (`merge_into`), leaving one map with the keyframes of both."""
     from orbslam3_cpp_fork_tpu_torch.models.atlas import Atlas
 
-    atlas = Atlas(tms.MapConfig(max_keyframes=8, max_landmarks=32, n_features=8))
-    for call in (atlas.create_new_map, lambda: atlas.merge_into(0, 1, None)):
-        with pytest.raises(NotImplementedError, match="A12"):
-            call()
-    assert atlas.n_maps() == 1 and atlas.active.map_id == 0
+    atlas = Atlas(tms.MapConfig(max_keyframes=64, max_landmarks=32, n_features=8))
+    atlas.maps[0] = _port_map(5)
+    m1 = atlas.create_new_map()
+    assert atlas.n_maps() == 2 and atlas.active is m1 and m1.map_id == 1 and atlas._next_map_id == 2
+    atlas.maps[1] = _port_map(4)
+    atlas.maps[1].map_id = 1
+    kf_remap, lm_remap = atlas.merge_into(0, 1, (2.0, np.eye(3, dtype=np.float32), np.zeros(3, np.float32)))
+    assert atlas.n_maps() == 1 and atlas.active.map_id == 0 and atlas.active.n_keyframes() == 9
+    assert sorted(kf_remap.values()) == [5, 6, 7, 8] and lm_remap == {}
+    # T_new = T_old o M with M = (2, I, 0), stored as SE(3) through t / s.
+    assert np.allclose(atlas.active.kf_t[kf_remap[3]], [-0.15, 0, 0])

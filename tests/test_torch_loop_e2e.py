@@ -12,7 +12,10 @@ return leg revisits keyframes more than 90 frames old. A loop must close
 between views whose ground-truth optical axes are within 30 degrees, a
 global BA must follow, the scale-aligned ATE must stay under the 0.06 m bar
 of tests/test_loop_e2e.py (in the default mode 2 x 0.06 + 0.02 m, ROADMAP
-R5's rule), and a teleport to frame 48's pose, ~80 degrees from the last
+R5's rule, over the poses tracked while OK, of which there must be more than
+85%, and over every exported pose only in a run without a loss event: after a
+loss the mode exports dead-reckoned poses, ROADMAP R12), and a teleport to
+frame 48's pose, ~80 degrees from the last
 frame, must be relocalized by the keyframe database within 10 frames, within
 0.3 m of its ground truth (the gates of tests/test_reloc_e2e.py). The synchronous run is here (~60 s on one CPU
 thread), the default mode's in tests/test_torch_loop_e2e_async.py; ROADMAP
@@ -44,6 +47,9 @@ import chip_smoke  # noqa: E402  (the smoke's loop scene and its bounds)
 SWEEP_DEG, SWEEP_OUT, SWEEP_BACK = 1.4, 54, 62
 SWEEP_TELEPORT_TO = 48
 SWEEP_ATE_M = 0.06  # the ATE bar of tests/test_loop_e2e.py
+# Share of the frames the default mode must track while OK: the loss after
+# the loop correction (ROADMAP R12) comes at frames 112-113 of 116.
+SWEEP_MIN_TRACKED = 0.85
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -121,13 +127,23 @@ def revisit_run(mode):
         ok = track_sweep(trk, scene, Rs, ts)
         ts_est, Twc = trk.export_trajectory()  # flushes the workers, re-raising their failures
         ate = ate_rmse(ts_est, Twc[:, :3, 3], np.arange(n) * 0.05, ts)
+        keep = chip_smoke.tracked_mask(ts_est, dead)
+        ate_ok = ate_rmse(ts_est[keep], Twc[keep, :3, 3], np.arange(n) * 0.05, ts)
         lc = trk.loop_closer
         loops = [e for e in lc.events if e["kind"] == "loop"]
-        print(f"{mode}: tracked {sum(ok)}/{n}, loops {loops}, ATE {ate.rmse_scaled:.6f} m over {ate.n_pairs} poses")
+        print(f"{mode}: tracked {sum(ok)}/{n}, loops {loops}, loss events {trk.n_lost_events}, ATE "
+              f"{ate.rmse_scaled:.6f} m over every exported pose ({ate.n_pairs}), {ate_ok.rmse_scaled:.6f} m over the "
+              f"{int(keep.sum())} tracked while OK")
         assert sum(ok) > 0.9 * n and ate.n_pairs > 0.9 * n
         # The default mode's bar follows ROADMAP R5's rule (chip_smoke.py's async gates).
         bound = SWEEP_ATE_M if mode == "sync" else chip_smoke.ASYNC_ATE_FACTOR * SWEEP_ATE_M + chip_smoke.ASYNC_ATE_SLACK_M
-        assert ate.rmse_scaled < bound, ate
+        if mode == "sync" or trk.n_lost_events == 0:
+            assert ate.rmse_scaled < bound, ate
+        if mode == "async":
+            # ROADMAP R12: after a loss the mode exports dead-reckoned
+            # RECENTLY_LOST poses (in the reference too), so the default mode
+            # is held on the poses it tracked, as chip_smoke.py's loop B is.
+            assert ate_ok.rmse_scaled < bound and keep.sum() > SWEEP_MIN_TRACKED * n, ate_ok
         assert lc.n_loops_closed >= 1 and len(loops) == lc.n_loops_closed
         assert all(_revisit_deg(Rs, ev) < chip_smoke.LOOP_REVISIT_DEG for ev in loops), loops
         assert all(ev["kf_frame"] - ev["match_frame"] > 90 for ev in loops)

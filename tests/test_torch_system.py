@@ -207,7 +207,6 @@ def test_system_builds_the_tracker_configuration(tmp_path):
         (dict(sensor=Sensor.IMU_STEREO), "A13"),
         (dict(use_viewer=True), "A15"),
         (dict(live_viewer=True), "A15"),
-        (dict(load_atlas="atlas.npz"), "A12"),
     ],
 )
 def test_system_refuses_what_is_not_ported(kw, item):
@@ -215,10 +214,42 @@ def test_system_refuses_what_is_not_ported(kw, item):
         System(_settings(320, 240), **{"device": "cpu", **kw})
 
 
-def test_system_refuses_unported_calls_and_defaults_to_the_card():
+def test_system_loads_an_atlas(tmp_path):
+    """System(load_atlas=...) resumes from a checkpoint: the saved maps, the
+    keyframe database rebuilt by (map, slot), tracking LOST."""
+    from orbslam3_cpp_fork_tpu_torch.models.atlas import Atlas
+    from orbslam3_cpp_fork_tpu_torch.models.map_state import MapConfig
+    from orbslam3_cpp_fork_tpu_torch.runtime import checkpoint
+
+    import test_torch_atlas
+
+    cfg = System(_settings(320, 240), async_mapping=False, device="cpu").tracker.cfg.map_cfg
+    atlas = Atlas(MapConfig(max_keyframes=cfg.max_keyframes, max_landmarks=cfg.max_landmarks,
+                            n_features=cfg.n_features, imu_cap=cfg.imu_cap))
+    test_torch_atlas.fill_map(atlas.maps[0], np.random.default_rng(0), 5, cfg.n_features + 50, imu=False)
+    atlas.create_new_map()
+    test_torch_atlas.fill_map(atlas.maps[1], np.random.default_rng(1), 3, cfg.n_features + 50, frame0=20, imu=False)
+    path = str(tmp_path / "atlas.npz")
+    checkpoint.save_atlas(atlas, path)
+    system = System(_settings(320, 240), async_mapping=False, load_atlas=path, device="cpu")
+    trk = system.tracker
+    assert system.get_tracking_state() == TrackState.LOST and system.atlas.n_maps() == 2
+    assert trk.loop_closer.atlas is system.atlas and trk.map.map_id == 1
+    assert np.array_equal(trk.atlas.maps[0].kf_R, atlas.maps[0].kf_R)
+    rows = sorted(trk.kfdb._desc_store)
+    K = cfg.max_keyframes
+    assert rows == [0, 1, 2, 3, 4, K, K + 1, K + 2], "database rows by (map, slot)"
+    system.shutdown()
+
+
+def test_system_refuses_unported_calls_and_defaults_to_the_card(tmp_path):
+    from orbslam3_cpp_fork_tpu_torch.runtime import checkpoint
+
     system = System(_settings(320, 240), enable_loop_closing=False, async_mapping=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="A12"):
-        system.save_atlas("x")
+    path = str(tmp_path / "atlas.npz")
+    system.save_atlas(path)  # the Atlas is ported: saving writes a checkpoint
+    back, extra = checkpoint.load_atlas(path)
+    assert back.n_maps() == 1 and extra["kfdb_n_words"] == system.tracker.kfdb.n_words
     img = np.zeros((240, 320), np.float32)
     for call in (lambda: system.track_stereo(img, img, 0.0), lambda: system.track_rgbd(img, img, 0.0)):
         with pytest.raises(ValueError, match="MONOCULAR"):
@@ -229,7 +260,8 @@ def test_system_refuses_unported_calls_and_defaults_to_the_card():
     system.deactivate_localization_mode()
     assert not system.tracker.localization_only
     assert system.tracker.worker is None and system.tracker.pipeline_lag == 0
-    system.shutdown()
+    system.shutdown(save_atlas_path=str(tmp_path / "at_shutdown.npz"))
+    assert checkpoint.load_atlas(str(tmp_path / "at_shutdown.npz"))[0].n_maps() == 1
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             System(_settings(320, 240), enable_loop_closing=False)  # no device given means the card
@@ -458,3 +490,21 @@ def test_tumvi_settings_build_system(tmp_path):
         system.track_stereo(img, img, 0.0)
     finally:
         system.shutdown()
+
+
+def test_system_resets_and_changes_dataset():
+    """System::Reset, ResetActiveMap and ChangeDataset: a fresh tracker on
+    the same device; a map of fewer than 10 keyframes rebuilt under its id;
+    the next sequence's first frame does not trip the timestamp guard."""
+    system = System(_settings(320, 240), async_mapping=True, device="cpu")
+    old = system.tracker
+    system.reset()
+    assert system.tracker is not old and old.worker is None and old.loop_worker is None
+    assert system.tracker.device == old.device and system.tracker.worker is not None
+    trk = system.tracker
+    trk.last = type("F", (), {"timestamp": 5.0})()
+    system.change_dataset()
+    assert trk.last is None and system.atlas.n_maps() == 1 and trk.state == TrackState.NO_IMAGES_YET
+    system.reset_active_map()
+    assert system.atlas.n_maps() == 1 and system.atlas.active.map_id == 0
+    system.shutdown()
