@@ -129,6 +129,29 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                localization mode over frames 10-19: a pose comes back, no
                keyframe is added, the last pose within 0.05 m of part A's
                (tests/test_system.py's bars). One describe launch a frame.
+ 11. inertial - the inertial slice on tests/test_vi_tracking_e2e.py's scene
+               (make_ring_scene(seed=5), a 2 m circle with 0.25 m of vertical
+               bobbing, 10 fps, exact 200 Hz IMU rows, 1000 features, the
+               test's shortened ladder). First the fused describe kernel
+               against its plain version on the scene's pyramids. Part A:
+               IMU_MONOCULAR at 752x480, synchronous, 70 frames: the IMU
+               initialized (stages and their frames reported), state OK,
+               > 50 tracked, |scale - 1| < 0.12, scale-aligned ATE within
+               max(JAX, port on the CPU) + 10 mm and 0.10 m, the
+               trajectory's plane normal |n_z| > 0.98 (a gravity-aligned
+               world); a rerun of the first 30 frames (the IMU initializes at
+               15) gives the same poses bit for bit. Part B: the default mode
+               through System(settings, IMU_MONOCULAR), 45 frames (the ladder
+               on the mapping worker at the reference's default schedule):
+               the IMU initialized, no thread error, > 80% exported in order,
+               |scale - 1| < 0.2, ATE of the poses tracked while OK <= 2 x
+               part A's + 0.02 m. Part C: IMU_STEREO on the trajectory's first
+               40 frames as pairs of the 0.2 m rig at 640x480 (the reference
+               misses the scale bar at 752x480): initialized at frame 0, the
+               IMU initialized, unscaled ATE within max(JAX, port on the CPU)
+               + 10 mm, |scale - 1| < 0.05. Reports host ms a frame and per
+               window VI BA and the preintegration's kernel launches a frame.
+               orb_describe runs once a frame, twice a pair.
 `--profile N` adds a torch.profiler pass over N frames (kernel launches and
 device time per frame, host time per stage) and over the SLAM phase's
 tracked frames and mapping steps, `--compare-routes` a timing of the tracker
@@ -274,6 +297,35 @@ MERGE_ASYNC_REF_MERGES = 0
 # Part C: the checkpoint's relocalization bars (tests/test_system.py).
 CKPT_FRAMES = (10, 20)
 CKPT_TOL_M = 0.05
+# Inertial phase: tests/test_vi_tracking_e2e.py's trajectory and ladder.
+VI_FRAMES = 70
+# Depth cuts of the inertial phase (PERF.md section 4): part A's bitwise
+# rerun covers the first frames (the IMU initializes at frame 15), part B
+# the frames its default ladder needs, part C the first frames of the
+# trajectory.
+VI_RERUN_FRAMES = 30
+VI_ASYNC_FRAMES = 45
+VI_STEREO_FRAMES = 40
+VI_FPS = 10.0
+VI_IMU_HZ = 200.0
+VI_RADIUS, VI_OMEGA, VI_BOB_A, VI_BOB_W = 2.0, 0.35, 0.25, 3.0
+VI_LADDER = dict(imu_init_min_kfs=6, imu_init_time=0.6, viba1_time=3.0, viba2_time=1e9, imu_kf_period=0.3)
+VI_MONO_SIZE = (752, 480)
+# Part C at the test's own 640x480: at 752x480 the reference's own
+# stereo-inertial run misses the stereo scale bar (scale 0.9411, CPU).
+VI_STEREO_SIZE = (640, 480)
+VI_MIN_TRACKED = 50  # of 70
+VI_SCALE_TOL = 0.12
+VI_MAX_ATE_M = 0.10  # scale-aligned, the bar of tests/test_vi_tracking_e2e.py
+VI_GRAVITY_NZ = 0.98
+VI_ASYNC_SCALE_TOL = 0.2
+# CPU runs of the same inputs, synchronous (pytest -m slow -s
+# tests/test_torch_vi_e2e.py -k full_width): part A's scale-aligned ATE,
+# part C's unscaled ATE.
+VI_JAX_ATE_M = 0.08602397722054414
+VI_PORT_ATE_M = 0.07992365339961789
+VI_STEREO_JAX_ATE_M = 0.0363071075563861
+VI_STEREO_PORT_ATE_M = 0.03667004520882259
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOPS = 67e12  # H100 SXM data sheet, float32 outside the tensor cores
 
@@ -1738,6 +1790,300 @@ def phase_merge(dev, orb_params, gate_ate):
     return launches, worst
 
 
+def bob_state(t):
+    """tests/test_vi_tracking_e2e.py's trajectory: a 2 m circle at 0.35 rad/s
+    with 0.25 m of vertical bobbing at 3 rad/s (the excitation that makes mono
+    scale observable), the camera (= body) looking outward. Returns Rwb, p,
+    the world acceleration and the body rates."""
+    import numpy as np
+
+    th = VI_OMEGA * t
+    c, s = np.cos(th), np.sin(th)
+    p = np.array([VI_RADIUS * c, VI_RADIUS * s, VI_BOB_A * np.sin(VI_BOB_W * t)])
+    a_w = np.array([-VI_RADIUS * VI_OMEGA**2 * c, -VI_RADIUS * VI_OMEGA**2 * s,
+                    -VI_BOB_A * VI_BOB_W**2 * np.sin(VI_BOB_W * t)])
+    x_b, z_b = np.array([-s, c, 0.0]), np.array([c, s, 0.0])
+    Rwb = np.stack([x_b, np.cross(z_b, x_b), z_b], axis=1)
+    return Rwb.astype(np.float32), p.astype(np.float32), a_w, Rwb.T @ np.array([0.0, 0.0, VI_OMEGA])
+
+
+def bob_imu_rows(t0, t1):
+    """Exact IMU rows [t, acc, gyro] over (t0, t1] at VI_IMU_HZ (midpoint
+    samples), as tests/test_vi_tracking_e2e.py's `imu_rows`."""
+    import numpy as np
+
+    g_w = np.array([0.0, 0.0, -9.81])
+    n = int(round((t1 - t0) * VI_IMU_HZ))
+    rows = []
+    for i in range(n):
+        Rwb, _, a_w, w_b = bob_state(t0 + (i + 0.5) * (t1 - t0) / n)
+        rows.append(np.concatenate([[t0 + (i + 1) * (t1 - t0) / n], Rwb.T @ (a_w - g_w), w_b]))
+    return np.asarray(rows, np.float32)
+
+
+def render_inertial(width, height, stereo=False, n_frames=None):
+    """The scene of tests/test_vi_tracking_e2e.py (make_ring_scene(seed=5)) at
+    width x height over `n_frames` frames at VI_FPS: stamps, ground-truth
+    poses, uint8 frames (or (left, right) pairs of the 0.2 m rig) and each
+    frame's IMU rows (None for the first)."""
+    import numpy as np
+
+    from orbslam3_cpp_fork_tpu_torch.datasets import synthetic
+
+    scene = synthetic.make_ring_scene(seed=5, width=width, height=height)
+    n_frames = VI_FRAMES if n_frames is None else n_frames
+    stamps = np.arange(n_frames) / VI_FPS
+    Rs, ts = (np.stack(x) for x in zip(*[bob_state(t)[:2] for t in stamps]))
+
+    def img(R, t):
+        return synthetic.to_u8(synthetic.render_frame(scene, R, t))
+
+    frames = [(img(R, t), img(*synthetic.stereo_right_pose(R, t, STEREO_BASELINE))) if stereo else img(R, t)
+              for R, t in zip(Rs, ts)]
+    rows = [None] + [bob_imu_rows(stamps[i - 1], stamps[i]) for i in range(1, n_frames)]
+    return scene, stamps, Rs, ts, frames, rows
+
+
+def vi_config(scene, orb_params, sensor, **kw):
+    """tests/test_vi_tracking_e2e.py's TrackerConfig: the default ImuSettings
+    at 200 Hz, its shortened ladder, loop closing off, synchronous."""
+    from orbslam3_cpp_fork_tpu_torch import convert
+    from orbslam3_cpp_fork_tpu_torch.runtime.tracker import ImuSettings, TrackerConfig
+
+    K = scene.K
+    extra = dict(bf=STEREO_BASELINE * float(K[0, 0]), th_depth=STEREO_BASELINE * 40.0) if sensor.name != "IMU_MONOCULAR" else {}
+    return TrackerConfig(
+        camera=convert.camera_from_numpy(K[0, 0], K[1, 1], K[0, 2], K[1, 2]), width=scene.width,
+        height=scene.height, sensor=sensor, orb=orb_params, imu=ImuSettings(freq=VI_IMU_HZ), **VI_LADDER,
+        enable_loop_closing=False, async_mapping=False, **extra, **kw,
+    )
+
+
+class PreintCount:
+    """Counts the preintegration calls and measurement rows of a run, and
+    their host time (the enqueue of their launches): those of the frame path
+    (`Tracker._preintegrate_rows`, a CUDA graph replay each on the card) and
+    the eager ones (`ops.imu.preintegrate` called directly: the keyframes'
+    re-integrations)."""
+
+    def __init__(self):
+        from orbslam3_cpp_fork_tpu_torch.ops import imu
+        from orbslam3_cpp_fork_tpu_torch.runtime.tracker import Tracker
+
+        self.saved = [(imu, "preintegrate", imu.preintegrate), (Tracker, "_preintegrate_rows", Tracker._preintegrate_rows)]
+        self.n = {"frame": [0, 0, 0.0], "eager": [0, 0, 0.0]}  # calls, rows, seconds
+        depth = [0]
+
+        def wrap(kind, fn, rows_of):
+            def counted(*a, **kw):
+                depth[0] += 1
+                t0 = time.perf_counter()
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    depth[0] -= 1
+                    if depth[0] == 0:  # a graph's capture calls preintegrate inside the frame path
+                        c = self.n[kind]
+                        c[0] += 1
+                        c[1] += rows_of(*a)
+                        c[2] += time.perf_counter() - t0
+            return counted
+
+        imu.preintegrate = wrap("eager", imu.preintegrate, lambda acc, *a: int(acc.shape[-2]))
+        Tracker._preintegrate_rows = wrap("frame", Tracker._preintegrate_rows,
+                                          lambda trk, rows, *a: 0 if rows is None else len(rows))
+
+    def close(self):
+        for owner, name, fn in self.saved:
+            setattr(owner, name, fn)
+
+
+def preint_launches(dev):
+    """Kernel launches of one preintegration on the card: per call and per
+    measurement row, fitted from calls of 1 and 21 rows (torch.profiler)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from orbslam3_cpp_fork_tpu_torch.ops import imu
+
+    calib = imu.ImuCalib.create(1.7e-4, 2e-3, 1.9e-5, 3e-3, VI_IMU_HZ, device=dev)
+    z = torch.zeros(3, device=dev)
+    counts = {}
+    for n in (1, 21):
+        rows = torch.rand((n, 7), device=dev)
+        imu.preintegrate(rows[:, 1:4], rows[:, 4:7], rows[:, 0], calib, z, z)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            imu.preintegrate(rows[:, 1:4], rows[:, 4:7], rows[:, 0], calib, z, z)
+            torch.cuda.synchronize()
+        counts[n] = sum(e.count for e in prof.key_averages()
+                        if e.device_type == DeviceType.CUDA and not e.key.startswith(("Memcpy", "Memset")))
+    per_row = (counts[21] - counts[1]) / 20.0
+    return counts[1] - per_row, per_row
+
+
+def vi_report(name, trk, poses, stamps, Rs, ts, secs, dead=None):
+    """Stages reached and when, frames tracked, ATE and the gravity normal of
+    one inertial run; returns (ate result, |n_z|, exported stamps, Twc)."""
+    import numpy as np
+
+    from orbslam3_cpp_fork_tpu_torch.utils.evaluation import ate_rmse
+
+    ts_est, Twc = trk.export_trajectory()
+    if len(ts_est) < 3:
+        fail(f"{name}: {len(ts_est)} poses exported")
+    keep = np.ones(len(ts_est), bool)
+    if dead is not None:
+        keep = np.asarray([int(round(t * VI_FPS)) not in dead for t in ts_est], bool)
+    ate = ate_rmse(ts_est[keep], Twc[keep, :3, 3], stamps, ts)
+    pos = Twc[:, :3, 3] - Twc[:, :3, 3].mean(0)
+    n_z = abs(float(np.linalg.svd(pos)[2][2][2])) if len(pos) >= 3 else 0.0
+    spans = trk.timers.summary()
+    vi_ba = spans.get("map_local_vi_ba", {})
+    log(f"{name}: state {trk.state.name}, IMU stage {trk.map.imu_stage}, tracked {sum(T is not None for T in poses)}"
+        f"/{len(poses)}, keyframes {trk.map.n_keyframes()}; {secs:.2f} s, {1e3 * secs / len(poses):.1f} ms a frame "
+        f"(host clock); local VI BA {vi_ba.get('count', 0)} calls, mean {vi_ba.get('mean_ms', 0.0):.1f} ms; "
+        f"ATE {ate.rmse:.6f} m unscaled, {ate.rmse_scaled:.6f} m scale-aligned (scale {ate.scale:.4f}) over "
+        f"{ate.n_pairs} poses; gravity normal |n_z| {n_z:.4f}")
+    return ate, n_z, ts_est, Twc
+
+
+def run_vi_sync(dev, scene, frames, rows, stamps, orb_params, sensor):
+    """One synchronous inertial run over `frames`; the stages reached and the
+    frame each was reached at, the poses, the describe counts and the
+    seconds."""
+    from orbslam3_cpp_fork_tpu_torch.runtime.tracker import Tracker
+
+    trk = Tracker(vi_config(scene, orb_params, sensor), dev)
+    read = counted(dev)
+    stages, poses = {}, []
+    t0 = time.perf_counter()
+    for i, f in enumerate(frames):
+        if sensor.name == "IMU_STEREO":
+            poses.append(trk.track_stereo(f[0], f[1], float(stamps[i]), imu=rows[i]))
+        else:
+            poses.append(trk.track(f, float(stamps[i]), imu=rows[i]))
+        stages.setdefault(int(trk.map.imu_stage), i)
+    return trk, stages, poses, read(), time.perf_counter() - t0
+
+
+def phase_inertial(dev, orb_params, gate_ate):
+    """The inertial slice on the card (module docstring, phase 11)."""
+    import numpy as np
+
+    from orbslam3_cpp_fork_tpu_torch.runtime.tracker import Sensor
+    from orbslam3_cpp_fork_tpu_torch.utils.settings import ImuSettings
+
+    launches = 0
+    scene, stamps, Rs, ts, frames, rows = render_inertial(*VI_MONO_SIZE)
+    n = len(frames)
+    worst = hold_describe(f"the inertial scene ({VI_MONO_SIZE[0]}x{VI_MONO_SIZE[1]}, {N_FEATURES} features)",
+                          *frame_levels(dev, frames[0], orb_params))
+
+    # Part A: IMU_MONOCULAR, synchronous, twice.
+    count = PreintCount()
+    try:
+        trk, stages, poses, (cnt, host), secs = run_vi_sync(dev, scene, frames, rows, stamps, orb_params,
+                                                            Sensor.IMU_MONOCULAR)
+        pre = {k: (c / n, r / n, 1e3 * t / n) for k, (c, r, t) in count.n.items()}
+    finally:
+        count.close()
+    if cnt != n or host != n:
+        fail(f"inertial A: orb_describe ran {cnt} times on the card ({host} by the wrapper) for {n} frames")
+    launches += cnt
+    m = VI_RERUN_FRAMES
+    _, stages2, poses2, (cnt, host), secs2 = run_vi_sync(dev, scene, frames[:m], rows[:m], stamps[:m], orb_params,
+                                                        Sensor.IMU_MONOCULAR)
+    if cnt != m or host != m:
+        fail(f"inertial A: orb_describe ran {cnt} times on the card ({host} by the wrapper) for {m} frames")
+    launches += cnt
+    log(f"inertial A: IMU stages reached at frames {stages}; the rerun of the first {m} frames at {stages2} "
+        f"({secs2:.2f} s)")
+    ate, n_z, ts_est, Twc = vi_report("inertial A (IMU_MONOCULAR, synchronous)", trk, poses, stamps, Rs, ts, secs)
+    per_call, per_row = preint_launches(dev)
+    (fc, fr, fms), (ec, er, ems) = pre["frame"], pre["eager"]
+    log(f"inertial A: preintegration a frame: {fc:.2f} calls of the frame path ({fr:.1f} rows, {fms:.1f} ms of host "
+        f"time; each one CUDA graph replay) and {ec:.2f} eager calls ({er:.1f} rows, {ems:.1f} ms: the keyframes' "
+        f"re-integrations); one call is {per_call:.1f} + {per_row:.1f} a row kernels (torch.profiler), so "
+        f"~{(fc + ec) * per_call + (fr + er) * per_row:.0f} kernels a frame (ROADMAP X7)")
+    same = all((a is None and b is None) or (a is not None and b is not None and np.array_equal(a, b))
+               for a, b in zip(poses[:m], poses2))
+    bound = min(max(VI_JAX_ATE_M, VI_PORT_ATE_M) + TOL_LOOP_ATE_M, VI_MAX_ATE_M)
+    log(f"inertial A: bound min(max({VI_JAX_ATE_M:.6f}, {VI_PORT_ATE_M:.6f}) + {TOL_LOOP_ATE_M}, {VI_MAX_ATE_M}) = "
+        f"{bound:.6f} m; the rerun's poses bitwise equal to the first run's: {same}")
+    tracked = sum(T is not None for T in poses)
+    if trk.map.imu_stage < 1:
+        fail(f"inertial A: the IMU never initialized (stages {stages})")
+    if trk.state.name != "OK" or tracked <= VI_MIN_TRACKED:
+        fail(f"inertial A: state {trk.state.name}, {tracked} of {n} tracked (> {VI_MIN_TRACKED} required)")
+    if not abs(ate.scale - 1.0) < VI_SCALE_TOL:
+        fail(f"inertial A: scale {ate.scale:.4f} (|scale - 1| < {VI_SCALE_TOL} required)")
+    if gate_ate and not ate.rmse_scaled <= bound:
+        fail(f"inertial A: scale-aligned ATE {ate.rmse_scaled:.6f} m > {bound:.6f} m")
+    if not n_z > VI_GRAVITY_NZ:
+        fail(f"inertial A: the trajectory's plane normal |n_z| {n_z:.4f} (> {VI_GRAVITY_NZ} required)")
+    if not same:
+        fail(f"inertial A: the rerun's poses of the first {m} frames differ from the first run's")
+
+    # Part B: the default mode through System (mapping worker, the ladder on
+    # the worker against shim frames, loop closing off).
+    imu = ImuSettings(noise_gyro=1.7e-4, noise_acc=2e-3, walk_gyro=1.9e-5, walk_acc=3e-3, frequency=VI_IMU_HZ,
+                      Tbc=np.eye(4, dtype=np.float32))
+    system = make_system(dev, scene, orb_params, sensor=Sensor.IMU_MONOCULAR, imu=imu)
+    trk_b = system.tracker
+    if trk_b.worker is None:
+        fail("inertial B: the default mode has no mapping worker")
+    dead = spy_dead_reckoned(trk_b)
+    n = VI_ASYNC_FRAMES
+    read = counted(dev)
+    t0 = time.perf_counter()
+    poses_b = [system.track_monocular(f, float(stamps[i]), imu=rows[i]) for i, f in enumerate(frames[:n])]
+    secs_b = time.perf_counter() - t0
+    ate_b, _, ts_b, Twc_b = vi_report("inertial B (IMU_MONOCULAR, default mode through System)", trk_b, poses_b,
+                                      stamps[:n], Rs[:n], ts[:n], secs_b, dead=dead)
+    cnt, host = read()
+    system.shutdown()  # re-raises a failure of the mapping thread
+    bound_b = ASYNC_ATE_FACTOR * ate.rmse_scaled + ASYNC_ATE_SLACK_M
+    log(f"inertial B: {len(ts_b)} poses exported for {n} frames, {len(ts_b) - len(dead & set(range(n)))} tracked "
+        f"while OK; IMU stage {trk_b.map.imu_stage}; bound {ASYNC_ATE_FACTOR} x {ate.rmse_scaled:.6f} + "
+        f"{ASYNC_ATE_SLACK_M} = {bound_b:.6f} m; describe launches {cnt}")
+    if cnt != n or host != n:
+        fail(f"inertial B: orb_describe ran {cnt} times on the card ({host} by the wrapper) for {n} frames")
+    launches += cnt
+    if trk_b.map.imu_stage < 1:
+        fail("inertial B: the IMU never initialized")
+    if len(ts_b) / n <= ASYNC_MIN_COVERAGE or not np.all(np.diff(ts_b) > 0) or not np.isfinite(Twc_b).all():
+        fail(f"inertial B: {len(ts_b)} of {n} poses exported, or not in order, or not finite")
+    if not abs(ate_b.scale - 1.0) < VI_ASYNC_SCALE_TOL:
+        fail(f"inertial B: scale {ate_b.scale:.4f} (|scale - 1| < {VI_ASYNC_SCALE_TOL} required)")
+    if gate_ate and not ate_b.rmse_scaled <= bound_b:
+        fail(f"inertial B: scale-aligned ATE of the tracked poses {ate_b.rmse_scaled:.6f} m > {bound_b:.6f} m")
+
+    # Part C: IMU_STEREO on the same trajectory, rendered as pairs.
+    n = VI_STEREO_FRAMES
+    scene_c, stamps, Rs, ts, pairs, rows_c = render_inertial(*VI_STEREO_SIZE, stereo=True, n_frames=n)
+    worst = max(worst, *(hold_describe(f"an inertial stereo pair's {side} ({VI_STEREO_SIZE[0]}x{VI_STEREO_SIZE[1]})",
+                                       *frame_levels(dev, img, orb_params))
+                         for side, img in (("left", pairs[0][0]), ("right", pairs[0][1]))))
+    trk_c, stages_c, poses_c, (cnt, host), secs_c = run_vi_sync(dev, scene_c, pairs, rows_c, stamps, orb_params,
+                                                                Sensor.IMU_STEREO)
+    ate_c, _, _, _ = vi_report("inertial C (IMU_STEREO, synchronous)", trk_c, poses_c, stamps, Rs, ts, secs_c)
+    bound_c = max(VI_STEREO_JAX_ATE_M, VI_STEREO_PORT_ATE_M) + TOL_LOOP_ATE_M
+    log(f"inertial C: IMU stages reached at frames {stages_c}; unscaled ATE bound max({VI_STEREO_JAX_ATE_M:.6f}, "
+        f"{VI_STEREO_PORT_ATE_M:.6f}) + {TOL_LOOP_ATE_M} = {bound_c:.6f} m; describe launches {cnt}")
+    if cnt != 2 * n or host != 2 * n:
+        fail(f"inertial C: orb_describe ran {cnt} times on the card ({host} by the wrapper) for {n} pairs")
+    launches += cnt
+    if poses_c[0] is None or trk_c.map.imu_stage < 1:
+        fail(f"inertial C: initialized at frame 0: {poses_c[0] is not None}; IMU stages {stages_c}")
+    if not abs(ate_c.scale - 1.0) < STEREO_SCALE_TOL:
+        fail(f"inertial C: scale {ate_c.scale:.4f} (|scale - 1| < {STEREO_SCALE_TOL} required)")
+    if gate_ate and not ate_c.rmse <= bound_c:
+        fail(f"inertial C: unscaled ATE {ate_c.rmse:.6f} m > {bound_c:.6f} m")
+    return launches, worst
+
+
 def phase_profile_slam(dev, scene, frames, orb_params):
     """torch.profiler over the SLAM phase's frames after initialization:
     kernel launches and device time per tracked frame and per mapping step
@@ -1943,6 +2289,7 @@ def main(argv=None) -> int:
     loop_launches = phase_loop(dev, orb_params, gate_ate=args.frames == FRAMES)
     stereo_launches, rgbd_launches, stereo_describe_err = phase_stereo(dev, orb_params, gate_ate=args.frames == FRAMES)
     merge_launches, merge_describe_err = phase_merge(dev, orb_params, gate_ate=args.frames == FRAMES)
+    inertial_launches, inertial_describe_err = phase_inertial(dev, orb_params, gate_ate=args.frames == FRAMES)
     if args.compare_routes:
         phase_compare_routes(dev, make, frames)
     if args.profile:
@@ -1958,15 +2305,17 @@ def main(argv=None) -> int:
             # One launch a frame on every mono path: localization-only
             # tracking, the synchronous cold-start SLAM run, the
             # asynchronous one, the loop phase's runs (A twice, B, C) and
-            # the merge phase's (A twice, B, C); two a stereo pair and one
-            # an RGB-D frame in the stereo phase; each counted from 0.
+            # the merge phase's (A twice, B, C) and the inertial phase's (A
+            # twice, B); two a stereo pair and one an RGB-D frame in the
+            # stereo phase, two a pair in the inertial phase's C; each
+            # counted from 0.
             "launches": describe_launches + slam_launches + async_launches + loop_launches + stereo_launches
-            + rgbd_launches + merge_launches,
+            + rgbd_launches + merge_launches + inertial_launches,
             "launches_localization": describe_launches, "launches_slam": slam_launches,
             "launches_async": async_launches, "launches_loop": loop_launches,
             "launches_stereo": stereo_launches, "launches_rgbd": rgbd_launches,
-            "launches_merge": merge_launches,
-            "max_abs_err": max(describe["max_abs_err"], stereo_describe_err, merge_describe_err),
+            "launches_merge": merge_launches, "launches_inertial": inertial_launches,
+            "max_abs_err": max(describe["max_abs_err"], stereo_describe_err, merge_describe_err, inertial_describe_err),
             "ms": describe["ms"], "plain_ms": describe["plain_ms"],
             "bound_ms": describe["bound_ms"], "bound_by": describe["bound_by"],
             # No single PyTorch call gathers windows, sums moments and

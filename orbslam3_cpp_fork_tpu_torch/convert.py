@@ -1,8 +1,11 @@
 """The state carried across from the reference runtime: camera, local-map
-snapshot, a map and the whole Atlas, a window-BA problem, the tracker
-configuration, the tracker's live state (last frame, motion model, reference
-keyframe, trajectory records, keyframe aliases), the keyframe database (rows
-by (map, slot)) and the loop closer's state.
+snapshot, a map and the whole Atlas, a window-BA problem, a preintegration
+and a visual-inertial BA problem, the tracker configuration, the tracker's
+live state (last frame, motion model, reference keyframe, trajectory
+records, keyframe aliases, and the inertial state: velocity, biases, the
+last body state, the marginal prior, the running preintegration since the
+last keyframe and its raw rows), the keyframe database (rows by (map,
+slot)) and the loop closer's state.
 
 The system has no weights. Its tracking state is the camera and the
 local-map snapshot the reference uploads in Tracker._refresh_dev_local:
@@ -23,11 +26,13 @@ from .device import get_device
 from .models.atlas import Atlas
 from .models.map_state import MapConfig, MapState
 from .ops.camera import Camera
+from .ops.imu import Preintegrated
 from .ops.orb import OrbParams
+from .optim.inertial import VIBAProblem
 from .optim.local_ba import BAProblem
 from .runtime.keyframe_database import KeyFrameDatabase
 from .runtime.localization import LocalMap
-from .runtime.tracker import DeviceKFStore, FrameData, Sensor, Tracker, TrackerConfig, TrackState
+from .runtime.tracker import DeviceKFStore, FrameData, ImuSettings, Sensor, Tracker, TrackerConfig, TrackState
 
 SNAPSHOT_KEYS = ("pos", "normal", "mind", "maxd", "desc", "valid")
 
@@ -144,6 +149,51 @@ def ba_problem_from_numpy(d: dict, device) -> BAProblem:
     return BAProblem(**fields, fx=float(d["fx"]), fy=float(d["fy"]), bf=float(d["bf"]))
 
 
+PREINT_FIELDS = tuple(f.name for f in dataclasses.fields(Preintegrated))
+
+
+def preintegrated_to_numpy(pre) -> dict:
+    """A Preintegrated (the reference's or the port's: the field names are
+    the same) as a dict of f32 numpy arrays."""
+    return {k: _host(getattr(pre, k)).astype(np.float32) for k in PREINT_FIELDS}
+
+
+def preintegrated_from_numpy(d: dict, device) -> Preintegrated:
+    """Dict of a Preintegrated's fields -> the port's record on `device`."""
+    dev = get_device(device)
+    return Preintegrated(**{k: torch.from_numpy(np.array(d[k], np.float32)).to(dev) for k in PREINT_FIELDS})
+
+
+def _host(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.array(x)
+
+
+VIBA_FIELDS = (
+    "Rwb", "twb", "vel", "bg", "ba", "kf_valid", "kf_fixed", "Xw", "lm_valid", "obs_kf", "obs_lm",
+    "obs_uvr", "obs_sigma2", "obs_stereo", "obs_valid", "edge_i", "edge_j", "edge_valid", "Rcb", "tcb",
+)
+
+
+def vi_problem_from_numpy(d, device) -> VIBAProblem:
+    """The reference VIBAProblem (or a dict of its fields) -> the port's on
+    `device`: indices int64, masks bool, the rest f32; fx, fy, bf, prior_g
+    and prior_a floats, prior_kf an int."""
+    get = (lambda k: d[k]) if isinstance(d, dict) else (lambda k: getattr(d, k))
+    dev = get_device(device)
+    kinds = {"kf_valid": bool, "kf_fixed": bool, "lm_valid": bool, "obs_stereo": bool, "obs_valid": bool,
+             "edge_valid": bool, "obs_kf": np.int64, "obs_lm": np.int64, "edge_i": np.int64, "edge_j": np.int64}
+    fields = {
+        k: torch.from_numpy(np.ascontiguousarray(_host(get(k)), kinds.get(k, np.float32))).to(dev)
+        for k in VIBA_FIELDS
+    }
+    pre = get("pre")
+    pre = preintegrated_from_numpy(pre if isinstance(pre, dict) else preintegrated_to_numpy(pre), dev)
+    return VIBAProblem(
+        **fields, pre=pre, fx=float(get("fx")), fy=float(get("fy")), bf=float(get("bf")),
+        prior_kf=int(get("prior_kf")), prior_g=float(get("prior_g")), prior_a=float(get("prior_a")),
+    )
+
+
 def kf_store_from_numpy(m: MapState, device) -> DeviceKFStore:
     """Device keyframe store mirroring every valid keyframe of map `m`."""
     store = DeviceKFStore(m.cfg.max_keyframes, m.cfg.n_features, get_device(device))
@@ -154,10 +204,10 @@ def kf_store_from_numpy(m: MapState, device) -> DeviceKFStore:
 def tracker_config_from_reference(d: dict) -> TrackerConfig:
     """The reference TrackerConfig's fields as a dict (e.g.
     `dataclasses.asdict` without its nested objects) -> the port's config,
-    for the fields the ported slice reads. `camera` may be a dict of
-    fx, fy, cx, cy[, dist]; `orb` and `map_cfg` dicts of their fields;
-    `sensor` an enum member or its name. Unknown fields are ignored, so the
-    unsupported ones are refused by `Tracker`, not here."""
+    for the fields the port reads. `camera` may be a dict of fx, fy, cx,
+    cy[, dist]; `orb`, `map_cfg` and `imu` dicts of their fields (or, for
+    `imu`, the reference's ImuSettings); `sensor` an enum member or its name.
+    Unknown fields are ignored."""
     known = {f.name for f in dataclasses.fields(TrackerConfig)}
     kw = {k: v for k, v in d.items() if k in known}
     cam = kw.get("camera")
@@ -167,6 +217,10 @@ def tracker_config_from_reference(d: dict) -> TrackerConfig:
         kw["orb"] = OrbParams(**kw["orb"])
     if isinstance(kw.get("map_cfg"), dict):
         kw["map_cfg"] = MapConfig(**kw["map_cfg"])
+    imu = kw.get("imu")
+    if imu is not None and not isinstance(imu, ImuSettings):
+        d_imu = imu if isinstance(imu, dict) else dataclasses.asdict(imu)
+        kw["imu"] = ImuSettings(**{**d_imu, "Tbc": np.array(d_imu["Tbc"], np.float32)})
     sensor = kw.get("sensor")
     if sensor is not None and not isinstance(sensor, Sensor):
         kw["sensor"] = Sensor[getattr(sensor, "name", sensor)]
@@ -206,12 +260,30 @@ def tracker_state_to_numpy(trk) -> dict:
     """The live tracking state of a tracker (the reference's or the port's:
     the attribute names are the same) as plain numbers and numpy arrays: the
     state machine, the `last` frame with its bindings, the motion model, the
-    reference keyframe, and the local-map snapshot's landmark ids and
-    anchor. With `map_state_to_numpy(trk.map)` it is everything one frame of
-    tracking reads, so a reference tracker and a port tracker can be put in
-    the same state and stepped side by side."""
+    reference keyframe, the local-map snapshot's landmark ids and anchor,
+    and an inertial tracker's state (`vi`: velocity, biases, the last body
+    state, the marginal prior, the running preintegration since the last
+    keyframe with its raw rows, the IMU clock, the chain's tail, the next
+    ScaleRefinement window). With `map_state_to_numpy(trk.map)` it is
+    everything one frame of tracking reads, so a reference tracker and a
+    port tracker can be put in the same state and stepped side by side."""
     snap = trk._dev_local
     anchor = None if snap is None else snap.get("anchor")
+    vi = None
+    if getattr(trk, "inertial", False):
+        pre = trk._pre_from_kf
+        vi = dict(
+            cur_v=np.array(trk.cur_v, np.float32), cur_bg=np.array(trk.cur_bg, np.float32),
+            cur_ba=np.array(trk.cur_ba, np.float32),
+            last_body=None if trk.last_body is None else tuple(np.array(x, np.float32) for x in trk.last_body),
+            prior_H=None if trk.prior_H is None else np.array(trk.prior_H, np.float32),
+            pre_from_kf=None if pre is None else preintegrated_to_numpy(pre),
+            imu_since_kf=[np.array(r, np.float32) for r in trk._imu_since_kf],
+            imu_since_kf_t=[float(t) for t in trk._imu_since_kf_t],
+            last_imu_t=None if trk._last_imu_t is None else float(trk._last_imu_t),
+            last_kf_slot=int(trk.last_kf_slot), scale_refine_idx=int(trk._scale_refine_idx),
+            kf_inserted_last_frame=bool(trk._kf_inserted_last_frame),
+        )
     return dict(
         state=trk.state.name, frame_id=int(trk.frame_id), ref_kf=int(trk.ref_kf),
         last_kf_frame_id=int(trk.last_kf_frame_id), n_kf_inserted=int(trk.n_kf_inserted),
@@ -224,6 +296,7 @@ def tracker_state_to_numpy(trk) -> dict:
         trajectory=[(int(f), float(t), int(mid), int(k), np.array(R), np.array(tt)) for f, t, mid, k, R, tt in trk.trajectory],
         traj_anchor_ptr=int(trk._traj_anchor_ptr), lost_frames=int(trk.lost_frames),
         kf_alias={(int(a), int(b)): (int(c), int(d)) for (a, b), (c, d) in trk._kf_alias.items()},
+        vi=vi,
     )
 
 
@@ -257,6 +330,22 @@ def load_tracker_state(
     trk._seen_change_idx = state["seen_change_idx"]
     trk.lost_frames = state.get("lost_frames", 0)
     trk._kf_alias = dict(state.get("kf_alias", {}))
+    vi = state.get("vi")
+    if vi is not None:
+        trk.cur_v, trk.cur_bg, trk.cur_ba = (vi[k].copy() for k in ("cur_v", "cur_bg", "cur_ba"))
+        trk.last_body = None if vi["last_body"] is None else tuple(x.copy() for x in vi["last_body"])
+        trk.prior_H = None if vi["prior_H"] is None else vi["prior_H"].copy()
+        trk._pre_from_kf = None if vi["pre_from_kf"] is None else preintegrated_from_numpy(vi["pre_from_kf"], trk.device)
+        trk._imu_since_kf = [r.copy() for r in vi["imu_since_kf"]]
+        trk._imu_since_kf_t = list(vi["imu_since_kf_t"])
+        trk._last_imu_t = vi["last_imu_t"]
+        trk.last_kf_slot = vi["last_kf_slot"]
+        trk._scale_refine_idx = vi["scale_refine_idx"]
+        trk._kf_inserted_last_frame = vi["kf_inserted_last_frame"]
+    if getattr(trk, "inertial", False):
+        trk.atlas.imu_calib = trk.imu_calib
+        for m in trk.atlas.maps:
+            m._imu_calib = trk.imu_calib
     if trajectory:
         trk.trajectory = [(f, t, mid, k, R.copy(), tt.copy()) for f, t, mid, k, R, tt in state["trajectory"]]
         trk._traj_anchor_ptr = state["traj_anchor_ptr"]

@@ -121,3 +121,42 @@ def fetch_block_async(tensors, pinned: torch.Tensor | None = None) -> AsyncFetch
     event = torch.cuda.Event()
     event.record()
     return AsyncFetch(tensors, host, event)
+
+
+class GraphedCall:
+    """`fn(*tensors)` -> a sequence of tensors, captured into one CUDA graph
+    per set of input shapes and dtypes at its first call on the card, then
+    replayed: the inputs are copied into the graph's own tensors, the graph
+    runs on the current stream, and copies of its outputs come back. A
+    function of thousands of small launches (an LM loop over small systems)
+    costs one launch a call. `fn` must be pure in its tensor arguments and
+    free of host syncs and host-to-device copies; other arguments are bound
+    into it, so a graph is valid only for one binding. On CPU tensors `fn`
+    runs as is. Other threads may use the card while a graph is captured
+    (`capture_error_mode="thread_local"`)."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self._graphs: dict = {}
+
+    def __call__(self, *args):
+        if not args[0].is_cuda:
+            return tuple(self.fn(*args))
+        key = tuple((a.shape, a.dtype, a.device) for a in args)
+        entry = self._graphs.get(key)
+        if entry is None:
+            static_in = [a.clone() for a in args]
+            side = torch.cuda.Stream(args[0].device)
+            side.wait_stream(torch.cuda.current_stream(args[0].device))
+            with torch.cuda.stream(side):  # warm-up: library handles and workspaces
+                self.fn(*static_in)
+            torch.cuda.current_stream(args[0].device).wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                static_out = tuple(self.fn(*static_in))
+            entry = self._graphs[key] = (graph, static_in, static_out)
+        graph, static_in, static_out = entry
+        for dst, src in zip(static_in, args):
+            dst.copy_(src)
+        graph.replay()
+        return tuple(o.clone() for o in static_out)

@@ -1,6 +1,6 @@
 """The SLAM map as fixed-capacity structure-of-arrays state (a copy of the
-reference's models/map_state.py: host-side numpy, no framework; only the
-IMU preintegration hooks, which need the inertial ops, are left out).
+reference's models/map_state.py: host-side numpy; the IMU re-integration
+runs the port's preintegration on the device of the attached calibration).
 
 Replaces the reference's mutex-guarded pointer graph — KeyFrame
 (src/KeyFrame.cc), MapPoint (src/MapPoint.cc), Map (src/Map.cc) — with
@@ -293,16 +293,61 @@ class MapState:
 
     def _reintegrate(self, k: int, bias: np.ndarray | None = None):
         """Recompute the stored preintegration of interval prev->k from the
-        raw buffer (IMU::Preintegrated::Reintegrate). Not ported yet."""
-        raise NotImplementedError("inertial: ROADMAP A13")
+        raw buffer (IMU::Preintegrated::Reintegrate, src/ImuTypes.cc:193), on
+        the device of the attached IMU calibration. Only the buffer's real
+        rows are integrated: the reference's masked padding rows leave the
+        state unchanged."""
+        import torch
+
+        from ..ops import imu as imu_ops
+
+        if self._imu_calib is None:
+            raise RuntimeError("map has no IMU calibration attached")
+        if bias is None:
+            bias = self.kf_pre_bias[k]
+        n = int(self.kf_imu_n[k])
+        dev = self._imu_calib.device
+        rows = torch.from_numpy(np.ascontiguousarray(self.kf_imu[k, :n])).to(dev)
+        b = torch.from_numpy(np.asarray(bias, np.float32)).to(dev)
+        pre = imu_ops.preintegrate(rows[:, 1:4], rows[:, 4:7], rows[:, 0], self._imu_calib, b[:3], b[3:])
+        self.store_preint(k, pre)
 
     def store_preint(self, k: int, pre):
-        """Store a Preintegrated into the SoA slots. Not ported yet."""
-        raise NotImplementedError("inertial: ROADMAP A13")
+        """Store a Preintegrated (tensors on any device, fetched in one
+        block) into the SoA slots."""
+        from ..device import fetch_block
 
-    def stacked_preint(self, ks: np.ndarray):
-        """Preintegrated record with leading dim len(ks). Not ported yet."""
-        raise NotImplementedError("inertial: ROADMAP A13")
+        dR, dV, dP, C, JRg, JVg, JVa, JPg, JPa, dT, bg, ba = fetch_block(
+            [pre.dR, pre.dV, pre.dP, pre.C, pre.JRg, pre.JVg, pre.JVa, pre.JPg, pre.JPa, pre.dT,
+             pre.bias_gyro, pre.bias_acc]
+        )
+        self.kf_pre_valid[k] = True
+        self.kf_pre_dR[k] = dR
+        self.kf_pre_dV[k] = dV
+        self.kf_pre_dP[k] = dP
+        self.kf_pre_C[k] = C
+        self.kf_pre_J[k] = np.stack([JRg, JVg, JVa, JPg, JPa])
+        self.kf_pre_dT[k] = float(dT)
+        self.kf_pre_bias[k] = np.concatenate([bg, ba])
+
+    def stacked_preint(self, ks: np.ndarray, device=None):
+        """Preintegrated record with leading dim len(ks), on `device` (the
+        CPU by default)."""
+        import torch
+
+        from ..ops import imu as imu_ops
+
+        ks = np.asarray(ks)
+
+        def t(a):
+            return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device or "cpu")
+
+        return imu_ops.Preintegrated(
+            dR=t(self.kf_pre_dR[ks]), dV=t(self.kf_pre_dV[ks]), dP=t(self.kf_pre_dP[ks]), C=t(self.kf_pre_C[ks]),
+            JRg=t(self.kf_pre_J[ks, 0]), JVg=t(self.kf_pre_J[ks, 1]), JVa=t(self.kf_pre_J[ks, 2]),
+            JPg=t(self.kf_pre_J[ks, 3]), JPa=t(self.kf_pre_J[ks, 4]), dT=t(self.kf_pre_dT[ks]),
+            bias_gyro=t(self.kf_pre_bias[ks, :3]), bias_acc=t(self.kf_pre_bias[ks, 3:]),
+        )
 
     def temporal_window(self, k: int, n: int) -> list[int]:
         """Last n keyframes ending at k through the kf_prev chain

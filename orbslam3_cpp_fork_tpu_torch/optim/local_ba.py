@@ -99,21 +99,27 @@ def _segment_sum(n: int, idx: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
 def _segment_plan(p: BAProblem):
     """(sum over keyframes, landmark indices, pair indices) for the
     normal-equation sums of problem `p` on its device (module docstring)."""
-    K, L, O = p.R.shape[0], p.Xw.shape[0], p.obs_kf.shape[0]
-    obs_kf, obs_lm = p.obs_kf.long(), p.obs_lm.long()
+    return segment_plan(p.R.shape[0], p.Xw.shape[0], p.obs_kf, p.obs_lm, p.obs_valid, p.Xw)
+
+
+def segment_plan(K: int, L: int, obs_kf, obs_lm, obs_valid, like: torch.Tensor):
+    """`_segment_plan` of K keyframes, L landmarks and the observations
+    (obs_kf, obs_lm, obs_valid), for sums of `like`'s dtype and device."""
+    O = obs_kf.shape[0]
+    obs_kf, obs_lm = obs_kf.long(), obs_lm.long()
     obs_pair = obs_kf * L + obs_lm
-    if not p.Xw.is_cuda:
+    if not like.is_cuda:
         return (lambda v: _segment_sum(K, obs_kf, v)), obs_lm, obs_pair
-    spread = torch.arange(O, device=p.Xw.device)
-    onehot = (obs_kf[None, :] == torch.arange(K, device=p.Xw.device)[:, None]).to(p.Xw.dtype)  # (K,O)
+    spread = torch.arange(O, device=like.device)
+    onehot = (obs_kf[None, :] == torch.arange(K, device=like.device)[:, None]).to(like.dtype)  # (K,O)
 
     def sum_kf(v):
         return (onehot @ v.reshape(O, -1)).reshape(K, *v.shape[1:])
 
     return (
         sum_kf,
-        torch.where(p.obs_valid, obs_lm, spread % L),
-        torch.where(p.obs_valid, obs_pair, spread % (K * L)),
+        torch.where(obs_valid, obs_lm, spread % L),
+        torch.where(obs_valid, obs_pair, spread % (K * L)),
     )
 
 

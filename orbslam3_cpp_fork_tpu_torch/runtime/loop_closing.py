@@ -23,7 +23,8 @@ Pipeline per keyframe (NewDetectCommonRegions + CorrectLoop / MergeLocal):
  5. a confirmed hypothesis in the active map is corrected here: propagate
     the corrective Sim(3) through the covisible window, re-anchor its
     landmarks, fuse duplicates against the loop window (SearchAndFuse), then
-    the essential graph over all keyframes. One in another map becomes a
+    the essential graph over all keyframes (4-DoF once the map's IMU is
+    initialized). One in another map becomes a
     merge proposal that the tracker executes (`Tracker._execute_merge`),
     whose last stage is `optimize_essential_graph_merge`.
 
@@ -789,7 +790,13 @@ class LoopCloser:
 
         fixed = np.zeros(K, bool)
         fixed[slot[c]] = True
-        mode = "se3" if self.cfg.fix_scale else "sim3"
+        # Inertial maps: the gravity-aligned world makes roll, pitch and scale
+        # observable, so the graph optimizes yaw and translation only
+        # (OptimizeEssentialGraph4DoF).
+        if m.imu_stage >= 1:
+            mode = "4dof"
+        else:
+            mode = "se3" if self.cfg.fix_scale else "sim3"
         put = self._put
         res = pose_graph.optimize_pose_graph(
             put(s0), put(R0), put(t0), put(np.ones(K, bool)), put(fixed),

@@ -1,17 +1,19 @@
 """System facade: the library's top-level entry point (port of
-runtime/system.py, visual part).
+runtime/system.py).
 
 Owns the tracker; exposes the per-frame `track_monocular`, `track_stereo`
-and `track_rgbd` calls with input pre-processing (RGB -> gray, resize with
-the camera scaled to match; for an unrectified pinhole stereo rig,
-rectification by `remap_bilinear` on the tracker's device with maps
-computed once on the host), state queries, trajectory export in TUM/KITTI
-formats, Atlas checkpoints (`save_atlas`, `load_atlas=`, and the settings'
-System.LoadAtlasFromFile / SaveAtlasToFile), sequence changes and resets,
-and `shutdown`, which flushes and stops the mapping and loop-closing workers
-and joins a global BA in flight. Loop closing is on by default, as in the
-reference. Inertial input and the viewers raise `NotImplementedError`
-naming their ROADMAP item, as the tracker does.
+and `track_rgbd` calls, each with the IMU rows of an inertial sensor
+(`imu=`), with input pre-processing (RGB -> gray, resize with the camera
+scaled to match; for an unrectified pinhole stereo rig, rectification by
+`remap_bilinear` on the tracker's device with maps computed once on the
+host, the IMU extrinsic following the rectifying rotation), state queries,
+trajectory export in TUM/KITTI/EuRoC formats (EuRoC in the body frame for an
+inertial sensor), Atlas checkpoints (`save_atlas`, `load_atlas=`, and the
+settings' System.LoadAtlasFromFile / SaveAtlasToFile), sequence changes and
+resets, and `shutdown`, which flushes and stops the mapping and loop-closing
+workers and joins a global BA in flight. Loop closing is on by default, as
+in the reference. The viewers raise `NotImplementedError` naming their
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ from ..utils import timers as timers_mod
 from ..utils.settings import Settings, load_settings
 from ..utils.trajectory import write_kitti, write_tum
 from . import checkpoint
-from .tracker import Sensor, Tracker, TrackerConfig, TrackState
+from .tracker import ImuSettings, Sensor, Tracker, TrackerConfig, TrackState
 
 log = logging.getLogger("orbslam3_torch.system")
 
@@ -63,8 +65,6 @@ class System:
     ):
         if isinstance(settings, str):
             settings = load_settings(settings)
-        if sensor.name.startswith("IMU"):
-            raise _not_ported(f"sensor {sensor.name}", "A13")
         if use_viewer or live_viewer:
             raise _not_ported("the viewers", "A15")
         self.settings = settings
@@ -87,9 +87,12 @@ class System:
         # track_stereo.
         self._rect = None
         self._rect_maps = None
-        if sensor == Sensor.STEREO and s.left_rect is not None and s.right_rect is not None:
+        stereo_sensor = sensor in (Sensor.STEREO, Sensor.IMU_STEREO)
+        imu_Tbc = s.imu.Tbc if s.imu is not None else None
+        if stereo_sensor and s.left_rect is not None and s.right_rect is not None:
+            # The legacy blocks: Tbc is already given in the rectified camera.
             self._rect = self._legacy_rectification(width, height)
-        elif sensor == Sensor.STEREO and cam2 is not None and s.camera_type == "PinHole":
+        elif stereo_sensor and cam2 is not None and s.camera_type == "PinHole":
             from ..utils.rectify import stereo_rectify
 
             self._rect = stereo_rectify(
@@ -98,6 +101,20 @@ class System:
             )
             K_new = self._rect.K_new
             cam = Camera.pinhole(K_new[0, 0], K_new[1, 1], K_new[0, 2], K_new[1, 2])
+            # Rectification rotates camera 1 by R1: the body-from-camera
+            # extrinsic follows (Tbc = Tbc * T_r1_u1^-1, src/Settings.cc:524-530).
+            if imu_Tbc is not None:
+                T_u1_r1 = np.eye(4)
+                T_u1_r1[:3, :3] = np.asarray(self._rect.R1).T
+                imu_Tbc = np.asarray(imu_Tbc, np.float64) @ T_u1_r1
+        imu_cfg = None
+        if sensor in (Sensor.IMU_MONOCULAR, Sensor.IMU_STEREO, Sensor.IMU_RGBD):
+            if s.imu is None:
+                raise ValueError("inertial sensor requires IMU settings")
+            imu_cfg = ImuSettings(
+                noise_gyro=s.imu.noise_gyro, noise_acc=s.imu.noise_acc, walk_gyro=s.imu.walk_gyro,
+                walk_acc=s.imu.walk_acc, freq=s.imu.frequency, Tbc=np.asarray(imu_Tbc, np.float32),
+            )
         bf = (s.bf or 0.0) * self._scale_x
         if self._rect is not None:
             bf = self._rect.bf
@@ -105,7 +122,7 @@ class System:
         # (left-from-right). The tracker takes T_rl, its inverse, and bf from
         # the baseline when the settings give none.
         fisheye_kw = {}
-        if sensor == Sensor.STEREO and cam2 is not None and s.camera_type == "KannalaBrandt8":
+        if stereo_sensor and cam2 is not None and s.camera_type == "KannalaBrandt8":
             T12 = np.asarray(s.Tlr, np.float64)  # x_l = R12 x_r + t12
             R_rl = T12[:3, :3].T
             t_rl = -R_rl @ T12[:3, 3]
@@ -132,6 +149,7 @@ class System:
             bf=bf,
             th_depth=th_depth,
             depth_factor=1.0 / s.depth_map_factor if s.depth_map_factor else 1.0,
+            imu=imu_cfg,
             kf_max_interval=int(round(s.fps)) if s.fps else 30,
             async_mapping=async_mapping,
             enable_loop_closing=enable_loop_closing,
@@ -177,17 +195,21 @@ class System:
             img = img.cpu().numpy()
         return np.ascontiguousarray(img, np.float32)
 
-    def track_monocular(self, img: np.ndarray, timestamp: float) -> np.ndarray | None:
+    def track_monocular(self, img: np.ndarray, timestamp: float, imu: np.ndarray | None = None) -> np.ndarray | None:
+        """A frame of a monocular sensor; `imu` (M,7) rows [t, acc, gyro]
+        since the previous frame for IMU_MONOCULAR."""
         self._check_sensor(Sensor.MONOCULAR)
         t0 = time.perf_counter()
-        T = self.tracker.track(self._preprocess(img), timestamp)
+        T = self.tracker.track(self._preprocess(img), timestamp, imu=imu)
         self.timers.add("track_total", time.perf_counter() - t0)
         return T
 
     def _check_sensor(self, sensor: Sensor) -> None:
+        """`sensor` is the visual kind of the frame; its inertial variant is
+        accepted too."""
         if self._shutdown:
             raise RuntimeError("System was shut down")
-        if self.sensor != sensor:
+        if self.sensor not in (sensor, Sensor[f"IMU_{sensor.name}"]):
             raise ValueError(f"a {self.sensor.name} System takes no {sensor.name} frames")
 
     def _remap_pair(self, img_l: np.ndarray, img_r: np.ndarray):
@@ -205,24 +227,26 @@ class System:
         out_r = remap_bilinear(torch.from_numpy(img_r).to(dev), m2x, m2y)
         return out_l.cpu().numpy(), out_r.cpu().numpy()
 
-    def track_stereo(self, img_left: np.ndarray, img_right: np.ndarray, timestamp: float) -> np.ndarray | None:
+    def track_stereo(self, img_left: np.ndarray, img_right: np.ndarray, timestamp: float,
+                     imu: np.ndarray | None = None) -> np.ndarray | None:
         self._check_sensor(Sensor.STEREO)
         t0 = time.perf_counter()
         img_l, img_r = self._preprocess(img_left), self._preprocess(img_right)
         if self._rect is not None:
             img_l, img_r = self._remap_pair(img_l, img_r)
-        T = self.tracker.track_stereo(img_l, img_r, timestamp)
+        T = self.tracker.track_stereo(img_l, img_r, timestamp, imu=imu)
         self.timers.add("track_total", time.perf_counter() - t0)
         return T
 
-    def track_rgbd(self, img: np.ndarray, depth: np.ndarray, timestamp: float) -> np.ndarray | None:
+    def track_rgbd(self, img: np.ndarray, depth: np.ndarray, timestamp: float,
+                   imu: np.ndarray | None = None) -> np.ndarray | None:
         self._check_sensor(Sensor.RGBD)
         t0 = time.perf_counter()
         depth = np.asarray(depth, np.float32)
         if self._resize is not None and depth.shape != self._resize:
             dev = self.tracker.device
             depth = resize_bilinear(torch.from_numpy(np.ascontiguousarray(depth)).to(dev), self._resize).cpu().numpy()
-        T = self.tracker.track_rgbd(self._preprocess(img), depth, timestamp)
+        T = self.tracker.track_rgbd(self._preprocess(img), depth, timestamp, imu=imu)
         self.timers.add("track_total", time.perf_counter() - t0)
         return T
 
@@ -293,6 +317,15 @@ class System:
         """System::GetImageScale: resize factor applied to inputs."""
         return float(self._scale_x)
 
+    def get_time_from_imu_init(self) -> float:
+        """Seconds since the active map's IMU clock started, once its IMU is
+        initialized (System::GetTimeFromIMUInit); 0.0 before."""
+        tr = self.tracker
+        m = tr.map
+        if not tr.inertial or m.imu_stage < 1 or m.imu_t0 < 0 or tr.last is None:
+            return 0.0
+        return float(tr.last.timestamp - m.imu_t0)
+
     def get_tracked_map_points(self) -> np.ndarray:
         """Landmark indices bound to the current frame's features, -1 where
         unbound (System::GetTrackedMapPoints)."""
@@ -328,6 +361,34 @@ class System:
             Twc[i, :3, 3] = -m.kf_R[k].T @ m.kf_t[k]
         write_tum(path, m.kf_timestamp[ks], Twc)
 
+    def _to_body(self, Twc: np.ndarray) -> np.ndarray:
+        """Camera-to-world poses -> body-to-world for an inertial sensor."""
+        if not self.tracker.inertial:
+            return Twc
+        Tbc = np.eye(4, dtype=np.float64)
+        Tbc[:3, :3] = self.tracker.Rbc
+        Tbc[:3, 3] = self.tracker.tbc
+        return Twc @ np.linalg.inv(Tbc)[None]
+
+    def save_keyframe_trajectory_euroc(self, path: str):
+        """System::SaveKeyFrameTrajectoryEuRoC: keyframe poses, in the body
+        frame for an inertial sensor."""
+        self.tracker.flush_mapping()
+        m = self.tracker.map
+        ks = np.nonzero(m.kf_valid)[0]
+        ks = ks[np.argsort(m.kf_timestamp[ks])]
+        Twc = np.tile(np.eye(4), (len(ks), 1, 1))
+        for i, k in enumerate(ks):
+            Twc[i, :3, :3] = m.kf_R[k].T
+            Twc[i, :3, 3] = -m.kf_R[k].T @ m.kf_t[k]
+        write_tum(path, m.kf_timestamp[ks], self._to_body(Twc))
+
+    def save_trajectory_euroc(self, path: str):
+        """System::SaveTrajectoryEuRoC: every frame's pose in TUM line
+        format, in the body frame for an inertial sensor."""
+        ts, Twc = self.tracker.export_trajectory()
+        write_tum(path, ts, self._to_body(Twc))
+
     def save_trajectory_kitti(self, path: str):
         _, Twc = self.tracker.export_trajectory()
         write_kitti(path, Twc)
@@ -353,7 +414,7 @@ class System:
         reuse ids and keyframe generations: ROADMAP R13), and tracking
         resumes LOST, by relocalization."""
         tr = self.tracker
-        atlas, extra = checkpoint.load_atlas(path)
+        atlas, extra = checkpoint.load_atlas(path, imu_calib=tr.imu_calib)
         if extra.get("kfdb_seed") is not None and (
             extra["kfdb_seed"] != tr.kfdb._seed or extra["kfdb_n_words"] != tr.kfdb.n_words
         ):

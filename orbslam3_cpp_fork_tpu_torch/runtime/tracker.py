@@ -25,8 +25,15 @@ the live frame through `MapState.big_change_idx` (`_rebase_after_map_change`).
 Stereo and RGB-D frames (`track_stereo`, `track_rgbd`) carry a right
 coordinate and a depth per feature, initialize the map from one frame, take
 the split-phase path with stereo rows in the pose optimization, seed close
-points at every keyframe and close loops in SE(3). Inertial input raises
-`NotImplementedError` at construction, naming the ROADMAP item. The Atlas
+points at every keyframe and close loops in SE(3). The inertial sensors
+(IMU_MONOCULAR, IMU_STEREO, IMU_RGBD) take `imu=` rows with every frame: the
+rows are preintegrated on the device (`ops/imu.py`), a keyframe chain carries
+velocities, biases and the preintegration between keyframes, tracking adds
+one inertial edge to the pose optimization once the IMU is initialized
+(`_pose_optimize_vi`), the mapping step runs the IMU init ladder
+(InitializeIMU -> VIBA1 -> VIBA2 -> ScaleRefinement, `_imu_ladder`) and
+visual-inertial window BA, loops close with the 4-DoF essential graph, and
+the global BA after a loop is FullInertialBA. The Atlas
 holds many maps: past `reloc_patience` failed relocalizations (or at a frame
 older than its predecessor) a map of fewer than 10 keyframes is reset and a
 larger one kept while a fresh one starts (`_spawn_or_reset_map`); when the
@@ -44,7 +51,8 @@ most of the time, one stream orders every tensor that crosses the threads
 (keyframe-store rows, the local-map snapshot, a frame's features) without
 events, and the price is that a fetch of the mapping thread also waits for
 the tracking work queued before it. The map lock guards the numpy gathers
-and write-backs only; no device fetch happens under it.
+and write-backs; the one device fetch under it is an inertial keyframe's
+preintegration at its insertion (as in the reference).
 
 Trajectory bookkeeping stores (ref_kf, T_frame<-refkf) like
 Tracking::mlRelativeFramePoses, so BA corrections reach the exported
@@ -63,10 +71,11 @@ import time
 import numpy as np
 import torch
 
-from ..device import block_nbytes, fetch_block, fetch_block_async, get_device
+from ..device import GraphedCall, block_nbytes, fetch_block, fetch_block_async, get_device
 from ..models.atlas import Atlas
 from ..models.map_state import LEVEL_SIGMA2, MapConfig, MapState
 from ..ops import geometry, matching, orb, ransac, stereo
+from ..ops import imu as imu_ops
 from ..ops.camera import Camera, true_div, undistort_points
 from ..ops.image import N_LEVELS, SCALE_FACTOR
 from ..ops.image import scale_pow as _scale_pow
@@ -125,16 +134,48 @@ class Sensor(enum.Enum):
 
 
 @dataclasses.dataclass
+class ImuSettings:
+    """IMU noise and extrinsics (Settings::readIMU, src/Settings.cc:387-414).
+    Tbc maps camera coordinates to body/IMU coordinates (mImuCalib.mTbc)."""
+
+    noise_gyro: float = 1.7e-4
+    noise_acc: float = 2e-3
+    walk_gyro: float = 1.9e-5
+    walk_acc: float = 3e-3
+    freq: float = 200.0
+    Tbc: np.ndarray = dataclasses.field(default_factory=lambda: np.eye(4, dtype=np.float32))
+
+
+@dataclasses.dataclass
 class TrackerConfig:
-    """The reference's tracker configuration, with the fields the ported
-    slice reads (same names, same defaults). `sensor` and `imu` are kept so
-    that a configuration outside the slice is refused by name."""
+    """The reference's tracker configuration (same names, same defaults)."""
 
     camera: Camera = None
     width: int = 752
     height: int = 480
     sensor: Sensor = Sensor.MONOCULAR
-    imu: object | None = None
+    imu: ImuSettings | None = None
+    # IMU init ladder (LocalMapping::Run :232-286): the temporal chain's
+    # minimum length and elapsed seconds for InitializeIMU, then the VIBA1 /
+    # VIBA2 refinements.
+    imu_init_min_kfs: int = 10
+    imu_init_time: float = 1.0
+    viba1_time: float = 5.0
+    viba2_time: float = 15.0
+    # Mono-inertial ScaleRefinement windows and the bad-IMU thresholds
+    # (src/LocalMapping.cc:265-276 and :170-179).
+    scale_refine_times: tuple = (25.0, 35.0, 45.0, 55.0, 65.0, 75.0)
+    scale_refine_window: float = 0.5
+    bad_imu_time: float = 10.0
+    bad_imu_dist: float = 0.02
+    imu_kf_period: float = 0.25  # keyframe cadence until IMU init
+    # Visual-inertial BA capacities.
+    vi_kf_cap: int = 16
+    vi_full_kf_cap: int = 48
+    vi_obs_cap: int = 24576
+    # IMU rows integrated per frame interval (later rows are dropped, as the
+    # reference's fixed window drops them).
+    imu_frame_cap: int = 64
     orb: orb.OrbParams = dataclasses.field(default_factory=orb.OrbParams)
     # Stereo / RGB-D: bf = baseline * fx (mbf); the close/far point
     # threshold mThDepth = bf * ThDepth / fx; the RGB-D depth map's factor
@@ -687,10 +728,6 @@ class Tracker:
 
     def __init__(self, cfg: TrackerConfig, device: str | torch.device = "cuda"):
         assert cfg.camera is not None
-        if cfg.sensor.name.startswith("IMU"):
-            raise NotImplementedError(f"sensor {cfg.sensor.name} is not ported yet (ROADMAP A13)")
-        if cfg.imu is not None:
-            raise NotImplementedError("inertial tracking is not ported yet (ROADMAP A13)")
         self.cfg = cfg
         self.device = get_device(device)
         self.cam = cfg.camera
@@ -700,7 +737,43 @@ class Tracker:
         # Feature capacity follows the extractor budget.
         cfg.map_cfg.n_features = cfg.orb.n_features
         self.timers = StageTimers()
-        self.atlas = Atlas(cfg.map_cfg)
+        # Inertial setup: the calibration lives on the tracker's device, where
+        # every preintegration runs.
+        self.inertial = cfg.sensor in (Sensor.IMU_MONOCULAR, Sensor.IMU_STEREO, Sensor.IMU_RGBD)
+        self.imu_calib = None
+        if self.inertial:
+            s = cfg.imu or ImuSettings()
+            cfg.imu = s
+            Tbc = np.asarray(s.Tbc, np.float32)
+            self.imu_calib = imu_ops.ImuCalib.create(
+                s.noise_gyro, s.noise_acc, s.walk_gyro, s.walk_acc, s.freq,
+                Tbc_R=Tbc[:3, :3], Tbc_t=Tbc[:3, 3], device=self.device,
+            )
+            self.Rbc = Tbc[:3, :3]
+            self.tbc = Tbc[:3, 3]
+            self.Rcb = self.Rbc.T
+            self.tcb = (-self.Rbc.T @ self.tbc).astype(np.float32)
+        # IMU runtime state.
+        self._imu_since_kf: list[np.ndarray] = []  # rows [dt, acc3, gyro3] since the last keyframe
+        self._imu_since_kf_t: list[float] = []  # their absolute stamps
+        self._frame_imu: np.ndarray | None = None  # this frame's rows
+        self._pre_from_kf: imu_ops.Preintegrated | None = None  # running, since the last keyframe
+        self._last_imu_t: float | None = None
+        self.cur_v = np.zeros(3, np.float32)
+        self.cur_bg = np.zeros(3, np.float32)
+        self.cur_ba = np.zeros(3, np.float32)
+        self.last_body = None  # (Rwb, p, v) of the last tracked frame
+        self.prior_H = None  # 15x15 marginal prior of the last-frame VI optimization
+        self._kf_inserted_last_frame = False
+        self._scale_refine_idx = 0  # next ScaleRefinement window
+        # A bad-IMU verdict of the mapping thread: the map reset it asks for
+        # rewrites live tracking state, so the track thread performs it.
+        self._pending_reset = False
+        # The VI pose optimization by anchor variant, as one CUDA graph each on
+        # the card (`_vi_pose_call`).
+        self._vi_pose_calls: dict[bool, GraphedCall] = {}
+        self._preint_call: GraphedCall | None = None  # `_preintegrate_rows`
+        self.atlas = Atlas(cfg.map_cfg, imu_calib=self.imu_calib)
         self.map_lock = threading.RLock()
         self.state = TrackState.NO_IMAGES_YET
         self.last: FrameData | None = None
@@ -866,11 +939,102 @@ class Tracker:
         frame.img_u8 = None
 
     # ------------------------------------------------------------------
+    # IMU plumbing (Tracking::GrabImuData + PreintegrateIMU)
+    # ------------------------------------------------------------------
+
+    def _ingest_imu(self, imu: np.ndarray | None, timestamp: float):
+        """Absolute-time IMU rows [t, acc3, gyro3] covering the interval since
+        the previous frame -> [dt, acc3, gyro3] steps, with a partial last
+        step up to the frame's stamp."""
+        if not self.inertial:
+            return
+        rows, times = [], []
+        if imu is not None and len(imu):
+            imu = np.asarray(imu, np.float32)
+            t_prev = self._last_imu_t if self._last_imu_t is not None else float(imu[0, 0])
+            for r in imu:
+                t = float(r[0])
+                dt = t - t_prev
+                t_prev = t
+                if dt <= 0:
+                    continue
+                rows.append(np.concatenate([[dt], r[1:4], r[4:7]]).astype(np.float32))
+                times.append(t)
+            if timestamp > t_prev:  # partial tail step to the frame stamp
+                last = imu[-1]
+                rows.append(np.concatenate([[timestamp - t_prev], last[1:4], last[4:7]]).astype(np.float32))
+                times.append(timestamp)
+        self._last_imu_t = timestamp
+        self._frame_imu = np.stack(rows) if rows else None
+        self._imu_since_kf.extend(rows)
+        self._imu_since_kf_t.extend(times)
+
+    def _preintegrate_rows(self, rows, bg, ba, init=None) -> imu_ops.Preintegrated:
+        """Preintegrate up to `imu_frame_cap` [dt, acc, gyro] rows on the
+        tracker's device, from biases (bg, ba) or continuing `init`. The rows
+        are padded to a multiple of 8 with masked steps (which leave the state
+        as it is, bit for bit), so that a few CUDA graphs serve every frame
+        (`GraphedCall`)."""
+        n = 0 if rows is None else min(len(rows), self.cfg.imu_frame_cap)
+        if init is None:
+            init = imu_ops.Preintegrated.identity(self._put(bg, np.float32), self._put(ba, np.float32))
+        if n == 0:
+            return init
+        buf = np.zeros((-(-n // 8) * 8, 8), np.float32)
+        buf[:n, :7] = rows[:n]
+        buf[:n, 7] = 1.0
+        dev_buf = self._put(buf)
+        fields = dataclasses.fields(imu_ops.Preintegrated)
+        if self._preint_call is None:
+            calib = self.imu_calib
+
+            def fn(b, *state):
+                s0 = imu_ops.Preintegrated(*state)
+                out = imu_ops.preintegrate(b[:, 1:4], b[:, 4:7], b[:, 0], calib, s0.bias_gyro, s0.bias_acc,
+                                           init=s0, valid=b[:, 7] > 0)
+                return [getattr(out, f.name) for f in fields]
+
+            self._preint_call = GraphedCall(fn)
+        return imu_ops.Preintegrated(*self._preint_call(dev_buf, *[getattr(init, f.name) for f in fields]))
+
+    def _body_from_cam_np(self, R, t):
+        """Twb from Tcw (numpy, batched)."""
+        Rwc = np.swapaxes(np.asarray(R), -1, -2)
+        twc = -np.einsum("...ij,...j->...i", Rwc, np.asarray(t))
+        Rwb = Rwc @ self.Rbc.T
+        twb = twc - np.einsum("...ij,j->...i", Rwb, self.tbc)
+        return Rwb.astype(np.float32), twb.astype(np.float32)
+
+    def _cam_from_body_np(self, Rwb, twb):
+        """Tcw from Twb (numpy, batched)."""
+        Rwc = np.asarray(Rwb) @ self.Rbc
+        twc = np.asarray(twb) + np.einsum("...ij,j->...i", np.asarray(Rwb), self.tbc)
+        Rcw = np.swapaxes(Rwc, -1, -2)
+        tcw = -np.einsum("...ij,...j->...i", Rcw, twc)
+        return Rcw.astype(np.float32), tcw.astype(np.float32)
+
+    def _reset_vi_runtime(self):
+        self._imu_since_kf = []
+        self._imu_since_kf_t = []
+        self._pre_from_kf = None
+        self.last_body = None
+        self.prior_H = None
+        self.last_kf_slot = -1
+        self.cur_v = np.zeros(3, np.float32)
+        self.cur_bg = np.zeros(3, np.float32)
+        self.cur_ba = np.zeros(3, np.float32)
+        self._kf_inserted_last_frame = False
+        self._scale_refine_idx = 0
+
+    # ------------------------------------------------------------------
     # Public API
     # ------------------------------------------------------------------
 
-    def track(self, img: np.ndarray, timestamp: float) -> np.ndarray | None:
-        """Monocular frame; returns 4x4 Tcw or None while initializing/lost."""
+    def track(self, img: np.ndarray, timestamp: float, imu: np.ndarray | None = None) -> np.ndarray | None:
+        """Monocular frame; returns 4x4 Tcw or None while initializing/lost.
+        `imu`: (M,7) rows [t, ax, ay, az, gx, gy, gz] since the previous
+        frame (System::TrackMonocular's vImuMeas), for an inertial sensor."""
+        self._ingest_imu(imu, timestamp)
         frame = self._extract(img, timestamp)
         return self._process(frame)
 
@@ -887,11 +1051,13 @@ class Tracker:
             ur=ur.astype(np.float32), depth=depth.astype(np.float32), feats_dev=feats, xy_dev=xy_dev,
         )
 
-    def track_stereo(self, img_l: np.ndarray, img_r: np.ndarray, timestamp: float) -> np.ndarray | None:
+    def track_stereo(self, img_l: np.ndarray, img_r: np.ndarray, timestamp: float,
+                     imu: np.ndarray | None = None) -> np.ndarray | None:
         """Stereo pair (System::TrackStereo): ORB on both images (one
         describe launch each), then the rectified row-band match with SAD
         refinement, or, with `camera2`, the fisheye lapping-area match and
-        triangulation. Returns 4x4 Tcw or None."""
+        triangulation. `imu` as in `track`. Returns 4x4 Tcw or None."""
+        self._ingest_imu(imu, timestamp)
         cfg = self.cfg
         with self.timers.span("orb_extract"):
             jl, jr = self._upload_float(img_l), self._upload_float(img_r)
@@ -917,10 +1083,13 @@ class Tracker:
                 ur, d = fetch_block((ur, depth))
         return self._process(self._depth_frame(fl, xy_dev, ur, d, timestamp))
 
-    def track_rgbd(self, img: np.ndarray, depth_map: np.ndarray, timestamp: float) -> np.ndarray | None:
+    def track_rgbd(self, img: np.ndarray, depth_map: np.ndarray, timestamp: float,
+                   imu: np.ndarray | None = None) -> np.ndarray | None:
         """RGB-D frame (System::TrackRGBD): the depth map sampled at the raw
         keypoints gives each feature its depth and a virtual right
-        coordinate against its undistorted u. Returns 4x4 Tcw or None."""
+        coordinate against its undistorted u. `imu` as in `track`. Returns
+        4x4 Tcw or None."""
+        self._ingest_imu(imu, timestamp)
         cfg = self.cfg
         with self.timers.span("orb_extract"):
             feats = orb.extract_orb(self._upload_float(img), cfg.orb)
@@ -941,10 +1110,13 @@ class Tracker:
             waited = (time.perf_counter() - t_w) * 1e3
             if waited > 2.0:
                 self.frame_causes[frame.frame_id].append(f"map_wait:{waited:.0f}ms" + ("" if done else "+"))
-        # Hand-backs of the loop thread: a merge proposal executes here on
-        # the track thread (it rewrites live tracking state), and a correction
-        # (loop closure, global BA) rebases the last frame before this one
-        # tracks.
+        # Hand-backs of the mapping and loop threads: a bad-IMU verdict's map
+        # reset and a merge proposal execute here on the track thread (they
+        # rewrite live tracking state), and a correction (loop closure, global
+        # BA, IMU re-alignment) rebases the last frame before this one tracks.
+        if self._pending_reset:
+            self._pending_reset = False
+            self._spawn_or_reset_map()
         if self._pending_merge is not None:
             mk, proposal = self._pending_merge
             self._pending_merge = None
@@ -962,7 +1134,7 @@ class Tracker:
             return T
         self._ensure_feats(frame)
         if self.state in (TrackState.NO_IMAGES_YET, TrackState.NOT_INITIALIZED):
-            if self.cfg.sensor == Sensor.MONOCULAR:
+            if self.cfg.sensor in (Sensor.MONOCULAR, Sensor.IMU_MONOCULAR):
                 self._initialize(frame)
             else:
                 self._initialize_from_depth(frame)
@@ -1073,7 +1245,29 @@ class Tracker:
         self.velocity = None
         self.state = TrackState.OK
         self.n_kf_inserted = 2
+        if self.inertial:
+            # Seed the temporal chain: KF1 has no predecessor; KF2 gets the
+            # IMU rows between the two initialization frames.
+            m.set_keyframe_inertial(k1, np.zeros(3, np.float32), self.cur_bg, self.cur_ba, -1, None)
+            rows_t = np.asarray(self._imu_since_kf_t)
+            rows = np.stack(self._imu_since_kf) if self._imu_since_kf else np.zeros((0, 7), np.float32)
+            sel = (rows_t > ref.timestamp) & (rows_t <= frame.timestamp + 1e-9)
+            m.set_keyframe_inertial(k2, np.zeros(3, np.float32), self.cur_bg, self.cur_ba, k1,
+                                    rows[sel] if sel.any() else None)
+            self._start_chain(k2, ref.timestamp)
+            Rwb, p = self._body_from_cam_np(frame.R, frame.t)
+            self.last_body = (Rwb, p, np.zeros(3, np.float32))
         log.info("map initialized: %d landmarks from %d matches", len(gi), len(idx))
+
+    def _start_chain(self, k: int, t0: float):
+        """Keyframe k becomes the temporal chain's tail at a map's start; the
+        IMU clock of the map starts at t0."""
+        self._imu_since_kf = []
+        self._imu_since_kf_t = []
+        self._pre_from_kf = None
+        self.last_kf_slot = k
+        self.map.imu_t0 = t0
+        self._kf_inserted_last_frame = True
 
     # ------------------------------------------------------------------
     # Stereo / RGB-D initialization (StereoInitialization): depth gives
@@ -1128,6 +1322,11 @@ class Tracker:
         self.velocity = None
         self.state = TrackState.OK
         self.n_kf_inserted = 1
+        if self.inertial:
+            m.set_keyframe_inertial(k, np.zeros(3, np.float32), self.cur_bg, self.cur_ba, -1, None)
+            self._start_chain(k, frame.timestamp)
+            Rwb, p = self._body_from_cam_np(frame.R, frame.t)
+            self.last_body = (Rwb, p, np.zeros(3, np.float32))
         self.last = frame
         log.info("stereo/RGB-D map initialized: %d landmarks", len(feats))
 
@@ -1136,6 +1335,17 @@ class Tracker:
     # ------------------------------------------------------------------
 
     def _predict_pose(self, frame: FrameData):
+        if self.inertial and self.map.imu_stage >= 1 and self.last_body is not None:
+            # IMU dead reckoning from the last frame's body state
+            # (Tracking::PredictStateIMU).
+            pre = self._preintegrate_rows(self._frame_imu, self.cur_bg, self.cur_ba)
+            Rwb, p, v = self.last_body
+            put = self._put
+            R2, p2, v2 = imu_ops.predict_state(put(Rwb), put(p), put(v), pre, put(self.cur_bg), put(self.cur_ba))
+            Rwb2, p2, v2 = fetch_block((R2, p2, v2))
+            frame.R, frame.t = self._cam_from_body_np(Rwb2, p2)
+            self.cur_v = v2
+            return
         if self.velocity is not None and self.last.R is not None:
             Rv, tv = self.velocity
             frame.R = (Rv @ self.last.R).astype(np.float32)
@@ -1613,6 +1823,30 @@ class Tracker:
         self.velocity = None
         if self.last is None or self.last.R is None or not self.trajectory:
             return
+        if self.inertial and self.last_kf_slot >= 0 and m.kf_valid[self.last_kf_slot]:
+            # The inertial rebase (Tracking::UpdateFrameIMU): a gravity/scale
+            # re-alignment rescales the world, so the visual relative record
+            # is in the old units. Re-anchor at the last keyframe's corrected
+            # body state and dead-reckon through the body-frame
+            # preintegration since it, which the re-alignment leaves as it is.
+            k = self.last_kf_slot
+            with self.map_lock:
+                Rwb_k, p_k = self._body_from_cam_np(m.kf_R[k], m.kf_t[k])
+                v_k = m.kf_vel[k].copy()
+                self.cur_bg = m.kf_bg[k].copy()
+                self.cur_ba = m.kf_ba[k].copy()
+            if self._pre_from_kf is not None:
+                put = self._put
+                R2, p2, v2 = imu_ops.predict_state(put(Rwb_k), put(p_k), put(v_k), self._pre_from_kf,
+                                                   put(self.cur_bg), put(self.cur_ba))
+                Rwb2, p2, v2 = fetch_block((R2, p2, v2))
+            else:
+                Rwb2, p2, v2 = Rwb_k, p_k, v_k
+            self.last.R, self.last.t = self._cam_from_body_np(Rwb2, p2)
+            self.cur_v = v2.astype(np.float32)
+            self.last_body = (Rwb2, p2, self.cur_v.copy())
+            self.prior_H = None
+            return
         fid, ts, map_id, kref, R_cr, t_cr = self.trajectory[-1]
         while (map_id, kref) in self._kf_alias:
             map_id, kref = self._kf_alias[(map_id, kref)]
@@ -1674,6 +1908,14 @@ class Tracker:
             # Re-anchor the live tracking state in the destination map.
             k_new = kf_remap[k]
             self.ref_kf = k_new
+            if self.inertial:
+                if self.last_kf_slot >= 0:
+                    self.last_kf_slot = kf_remap.get(int(self.last_kf_slot), -1)
+                self.cur_v = ((self.cur_v @ RM) / sM).astype(np.float32)
+                # Preintegrations are body-frame: the weld leaves them as they
+                # are. The body state follows the welded frame pose.
+                self.last_body = None
+                self.prior_H = None
             lm_lut = np.full(self.cfg.map_cfg.max_landmarks, -1, np.int32)
             for a, b in lm_remap.items():
                 lm_lut[a] = b
@@ -1724,27 +1966,53 @@ class Tracker:
                      dst.map_id, dst.n_keyframes(), dst.n_landmarks())
 
     def _merge_inertial_ba(self, k_new: int, c: int):
-        """Optimizer::MergeInertialBA: a visual-inertial BA around the seam.
-        Not ported yet."""
-        raise NotImplementedError("the inertial merge BA (MergeInertialBA) is not ported yet (ROADMAP A13)")
+        """Optimizer::MergeInertialBA (src/Optimizer.cc:3919-4456): a VI BA
+        around the welding zone: the current keyframe's 6-keyframe temporal
+        chain plus the merge keyframe's temporal neighbourhood (3 back,
+        forward to ~12 in all), the gauge fixed on the old map's chain
+        boundary."""
+        m = self.map
+        nd = 6
+        chain_k = m.temporal_window(k_new, nd)[::-1]  # oldest..newest
+        chain_c = m.temporal_window(c, nd // 2)[::-1]
+        fwd = []
+        cur = c
+        while len(chain_c) + len(fwd) + len(chain_k) < 2 * nd:
+            nxt = int(m.kf_next[cur])
+            if nxt < 0 or not m.kf_valid[nxt] or nxt in chain_k:
+                break
+            fwd.append(nxt)
+            cur = nxt
+        opt = chain_c + fwd + chain_k  # opt[0]: the old map's boundary
+        built = self._build_vi_problem(opt, K_cap=2 * self.cfg.vi_kf_cap, obs_cap=self.cfg.ba_obs_cap)
+        if built is None:
+            return
+        with self.timers.span("merge_vi_ba"):
+            self._run_vi_ba(built, iters=10, gate_at=5)
 
     def _timestamp_guards(self, ts: float):
         """The timestamp guards of Tracking::Track: a frame older than its
-        predecessor spawns a fresh Atlas map (an established map is kept) or
-        resets a small one. (The inertial 1 s gap is ROADMAP A13.)"""
+        predecessor, or a gap of more than 1 s on an inertial run, spawns a
+        fresh Atlas map (an established map is kept) or resets a small one."""
         if self.state is TrackState.NO_IMAGES_YET or self.last is None:
             return
         prev = self.last.timestamp
         if ts < prev:
             log.warning("frame timestamp %.6f older than previous %.6f; new map", ts, prev)
+            self._last_imu_t = None
+            self._spawn_or_reset_map()
+        elif self.inertial and ts > prev + 1.0:
+            log.warning("timestamp jump %.2f s on inertial run", ts - prev)
+            self._last_imu_t = None
             self._spawn_or_reset_map()
 
     def new_dataset(self):
         """System::ChangeDataset: close out the current sequence (a small map
         is rebuilt, an established one kept and a fresh map started) and
-        forget the last frame, so that the next sequence's first frame does
-        not trip the timestamp guard."""
+        forget the last frame and the IMU clock, so that the next sequence's
+        first frame does not trip the timestamp guards."""
         self._spawn_or_reset_map()
+        self._last_imu_t = None
         self.last = None
 
     def _spawn_or_reset_map(self):
@@ -1785,6 +2053,8 @@ class Tracker:
         # A new scene is coming: re-train the place-recognition vocabulary
         # from the whole corpus (KeyFrameDatabase.refresh_codebook).
         self.kfdb.refresh_codebook()
+        if self.inertial:
+            self._reset_vi_runtime()
 
     # ------------------------------------------------------------------
     # Split-phase tracking and the loss ladder
@@ -1862,11 +2132,101 @@ class Tracker:
         self.map.lm_found[frame.lm_idx[bound[inl]]] += 1
         return int(inl.sum())
 
+    def _pose_opt_dispatch(self, frame: FrameData) -> int:
+        if self.inertial and self.map.imu_stage >= 1:
+            return self._pose_optimize_vi(frame)
+        return self._pose_optimize(frame)
+
+    def _pose_optimize_vi(self, frame: FrameData) -> int:
+        """Tracking-time VI state estimation (PoseInertialOptimization*):
+        reprojection + one inertial edge from the anchor: the last keyframe
+        when the map just changed, else the last frame with its marginal
+        prior. Unbinds the outliers and returns the inlier count."""
+        m = self.map
+        bound = np.nonzero(frame.lm_idx >= 0)[0]
+        if len(bound) < 3:
+            return 0
+        cap = self.cfg.local_lm_cap
+        bound = bound[:cap]
+        pad = cap - len(bound)
+        Xw = np.concatenate([m.lm_pos[frame.lm_idx[bound]], np.zeros((pad, 3), np.float32)])
+        uv_c = np.concatenate([frame.xy[bound] - [self.cx, self.cy], np.zeros((pad, 2), np.float32)]).astype(np.float32)
+        ur_c = np.concatenate([frame.ur[bound] - self.cx, np.zeros(pad, np.float32)]).astype(np.float32)
+        uvr = np.concatenate([uv_c, ur_c[:, None]], 1)
+        sig2 = np.concatenate([self._feat_sigma2(frame.level[bound]), np.ones(pad, np.float32)])
+        valid = np.concatenate([np.ones(len(bound), bool), np.zeros(pad, bool)])
+        is_st = np.concatenate([frame.ur[bound] >= 0, np.zeros(pad, bool)])
+
+        put = self._put
+        use_kf = (self._kf_inserted_last_frame or self.last_body is None or self.prior_H is None) \
+            and self.last_kf_slot >= 0
+        if use_kf:
+            k = self.last_kf_slot
+            Rwb1, p1 = self._body_from_cam_np(m.kf_R[k], m.kf_t[k])
+            v1, bg1, ba1 = m.kf_vel[k], m.kf_bg[k], m.kf_ba[k]
+            if self._pre_from_kf is None:
+                return self._pose_optimize(frame)
+            pre = self._pre_from_kf
+            H_prior = None
+            anchor_fixed = True
+        else:
+            Rwb1, p1, v1 = self.last_body
+            bg1, ba1 = self.cur_bg, self.cur_ba
+            pre = self._preintegrate_rows(self._frame_imu, bg1, ba1)
+            H_prior = put(self.prior_H, np.float32)
+            anchor_fixed = False
+        Rwb2, p2 = self._body_from_cam_np(frame.R, frame.t)
+        f32 = np.float32
+        args = [put(x, f32) for x in (Rwb1, p1, v1, bg1, ba1, Rwb2, p2, self.cur_v, self.cur_bg, self.cur_ba)]
+        args += [getattr(pre, f.name) for f in dataclasses.fields(imu_ops.Preintegrated)]
+        args += [put(Xw, f32), put(uvr, f32), put(sig2, f32), put(valid), put(is_st), put(self.Rcb, f32),
+                 put(self.tcb, f32)] + ([] if anchor_fixed else [H_prior])
+        out = self._vi_pose_call(anchor_fixed)(*args)
+        Rwb, p, v, bg, ba, H, inl = fetch_block(out)
+        frame.R, frame.t = self._cam_from_body_np(Rwb, p)
+        self.cur_v, self.cur_bg, self.cur_ba, self.prior_H = v, bg, ba, H
+        inl = inl[: len(bound)]
+        frame.lm_idx[bound[~inl]] = -1
+        self.map.lm_found[frame.lm_idx[bound[inl]]] += 1
+        return int(inl.sum())
+
+    def _vi_pose_call(self, anchor_fixed: bool) -> GraphedCall:
+        """`pose_inertial_optimization` of one anchor variant as a call on
+        tensors, replayed from one CUDA graph on the card (its 4 x 10 LM
+        iterations are thousands of small launches; the graph returns the same
+        bits as the eager call). Its arguments: the anchor and frame states,
+        the preintegration's fields, the observations, Rcb, tcb and, for the
+        last-frame variant, the prior."""
+        call = self._vi_pose_calls.get(anchor_fixed)
+        if call is None:
+            from ..optim import inertial as vi
+
+            n_pre = len(dataclasses.fields(imu_ops.Preintegrated))
+            fx, fy, bf = (float(np.float32(x)) for x in (self.fx, self.fy, self.cfg.bf))
+
+            def fn(*a):
+                pre = imu_ops.Preintegrated(*a[10:10 + n_pre])
+                Xw, uvr, sig2, valid, is_st, Rcb, tcb = a[10 + n_pre:17 + n_pre]
+                res = vi.pose_inertial_optimization(
+                    *a[:10], pre, Xw, uvr, sig2, valid, is_st, Rcb, tcb, fx, fy, bf,
+                    H_prior=None if anchor_fixed else a[17 + n_pre], anchor_fixed=anchor_fixed,
+                )
+                return res.Rwb, res.p, res.v, res.bg, res.ba, res.H_marg, res.inliers
+
+            call = self._vi_pose_calls[anchor_fixed] = GraphedCall(fn)
+        return call
+
     def _track_frame_slow(self, frame: FrameData):
         """Split-phase tracking (TrackWithMotionModel with its wide retry,
         TrackReferenceKeyFrame, TrackLocalMap), each stage a device program
         with its own result fetch: the ladder a frame climbs before a loss
         is declared."""
+        if self.inertial and self.last_kf_slot >= 0:
+            # Extend the running since-keyframe preintegration by this
+            # frame's rows (mpImuPreintegratedFromLastKF).
+            k = self.last_kf_slot
+            self._pre_from_kf = self._preintegrate_rows(self._frame_imu, self.map.kf_bg[k], self.map.kf_ba[k],
+                                                        init=self._pre_from_kf)
         self._predict_pose(frame)
         m = self.map
 
@@ -1879,7 +2239,7 @@ class Tracker:
             if len(lm_hit2) > len(lm_hit):
                 lm_hit, feat_hit = lm_hit2, feat_hit2
         frame.lm_idx[feat_hit] = lm_hit
-        n_in = self._pose_optimize(frame)
+        n_in = self._pose_opt_dispatch(frame)
         log.debug(
             "frame %d stage1: %d last-lms, %d hits, %d inliers", frame.frame_id, len(last_lms), len(lm_hit), n_in,
         )
@@ -1909,7 +2269,7 @@ class Tracker:
         local_lms = m.local_map_landmarks(local_kfs)
         lm_hit, feat_hit = self._match_landmarks_into_frame(frame, local_lms, 6.0)
         frame.lm_idx[feat_hit] = lm_hit
-        n_in = self._pose_optimize(frame)
+        n_in = self._pose_opt_dispatch(frame)
         log.debug(
             "frame %d stage2: %d local-lms, %d new hits, %d inliers", frame.frame_id, len(local_lms), len(lm_hit), n_in,
         )
@@ -1937,9 +2297,12 @@ class Tracker:
             frame.t = None
             return
         n_kf = self.map.n_keyframes()
+        imu_ready = self.inertial and self.map.imu_stage >= 1
         frame.lm_idx[:] = -1
         self.n_lost_events += 1
-        if n_kf > 10:
+        if n_kf > 10 or imu_ready:
+            # An initialized IMU keeps predicting: the reference publishes
+            # IMU-predicted poses while RECENTLY_LOST.
             log.warning("tracking RECENTLY_LOST at frame %d (%d KFs)", frame.frame_id, n_kf)
             self.state = TrackState.RECENTLY_LOST
             self.lost_t = frame.timestamp
@@ -1959,9 +2322,13 @@ class Tracker:
         `n_lost_frames` and its kept pose carries the prediction to the next
         frame. Falls to LOST after `time_recently_lost` seconds."""
         m = self.map
+        imu_ready = self.inertial and m.imu_stage >= 1
         recovered = False
         if self.last is not None and self.last.R is not None:
-            self._predict_pose(frame)
+            self._predict_pose(frame)  # IMU dead reckoning once the IMU is initialized
+            if imu_ready and self.last_body is not None:
+                Rwb, p = self._body_from_cam_np(frame.R, frame.t)
+                self.last_body = (Rwb, p, self.cur_v.copy())
             # Re-acquisition: project the reference-KF neighbourhood's
             # landmarks into the predicted pose with a wide window.
             if self.ref_kf >= 0 and m.kf_valid[self.ref_kf]:
@@ -1978,7 +2345,8 @@ class Tracker:
                     if n_in >= 30:
                         log.info("re-acquired tracking at frame %d (%d inliers)", frame.frame_id, n_in)
                         recovered = True
-            if not recovered:
+                        self.prior_H = None
+            if not recovered and not imu_ready:
                 # Full relocalization clears the frame's pose on failure; the
                 # kept pose is what the next re-acquisition predicts from.
                 R_keep, t_keep = frame.R, frame.t
@@ -1996,6 +2364,9 @@ class Tracker:
             self.state = TrackState.OK
             self.velocity = None
             self.lost_frames = 0
+            if self.inertial and frame.R is not None:
+                Rwb, p = self._body_from_cam_np(frame.R, frame.t)
+                self.last_body = (Rwb, p, self.cur_v.copy())
             self.last = frame
         elif frame.timestamp - self.lost_t > self.cfg.time_recently_lost:
             log.warning(
@@ -2029,6 +2400,16 @@ class Tracker:
                 and frames_since_kf >= self.cfg.kf_min_interval
             )
         ) and n_in > 15
+        if self.inertial and self.last_kf_slot >= 0:
+            # Inertial cadence: a steady keyframe stream keeps the
+            # preintegration chain short, mandatory until IMU init
+            # (NeedNewKeyFrame).
+            dt_kf = frame.timestamp - float(m.kf_timestamp[self.last_kf_slot])
+            if m.imu_stage == 0:
+                need = dt_kf >= self.cfg.imu_kf_period and n_in > 15
+            else:
+                need = need or (dt_kf >= 0.5 and n_in > 15)
+        self._kf_inserted_last_frame = False
         if need and self.worker is not None and not self.worker.accepting():
             # Back-pressure: mapping is saturated; skip this insertion and
             # retry next frame. Exception: when tracking is starving
@@ -2045,6 +2426,9 @@ class Tracker:
         if need and not self.localization_only:
             with self.timers.span("new_kf"):
                 self._insert_keyframe(frame)
+        if self.inertial:
+            Rwb, p = self._body_from_cam_np(frame.R, frame.t)
+            self.last_body = (Rwb, p, self.cur_v.copy())
         self.last = frame
 
     def _kf_bits(self, k: int) -> np.ndarray:
@@ -2224,10 +2608,12 @@ class Tracker:
             self.ref_kf = k
             self.n_kf_inserted += 1
             self._reanchor_trajectory_records(k)
+            if self.inertial:
+                self._attach_inertial_kf(k, frame)
             # Stereo/RGB-D: seed close points from depth (CreateNewKeyFrame)
             # on the track thread, so that the live frame sees its new
             # bindings.
-            if self.cfg.sensor != Sensor.MONOCULAR:
+            if self.cfg.sensor not in (Sensor.MONOCULAR, Sensor.IMU_MONOCULAR):
                 self._seed_depth_points(frame, k)
         if self.worker is not None:
             self.worker.submit(k, {"map_ref": m})
@@ -2350,10 +2736,16 @@ class Tracker:
             if self.worker is not None:
                 self.worker.release_frontier()
                 interrupted = interrupted or not self.worker.q.empty()
-            # Window BA on every keyframe, interrupted or not.
-            window = [k] + [int(x) for x in neigh[: self.cfg.ba_kf_cap - 1]]
-            with self.timers.span("map_local_ba_dispatch"):
-                ba_ctx = self._local_ba_dispatch(window, iters=self.cfg.ba_iters_per_kf)
+            # Window BA on every keyframe, interrupted or not: visual-inertial
+            # over the temporal window once the IMU is initialized.
+            ba_ctx = None
+            if self.inertial and m.imu_stage >= 1:
+                with self.timers.span("map_local_vi_ba"):
+                    self._local_inertial_ba(k)
+            else:
+                window = [k] + [int(x) for x in neigh[: self.cfg.ba_kf_cap - 1]]
+                with self.timers.span("map_local_ba_dispatch"):
+                    ba_ctx = self._local_ba_dispatch(window, iters=self.cfg.ba_iters_per_kf)
 
             # Redundant-keyframe culling (LocalMapping::KeyFrameCulling).
             if not interrupted:
@@ -2361,9 +2753,25 @@ class Tracker:
                     with self.timers.span("map_cull_kf"):
                         self._cull_keyframes(k)
 
+            # The BA write-back lands before the IMU ladder: an IMU
+            # initialization rewrites the whole map (gravity alignment and
+            # rescale), which a stale BA result applied after it would undo.
             if ba_ctx is not None:
                 with self.timers.span("map_local_ba"):
                     self._local_ba_apply(ba_ctx)
+            # The IMU init ladder. On the mapping worker it runs against a
+            # shim frame carrying the keyframe's stamp and pose: its map
+            # rewrites reach the live frame through big_change_idx and the
+            # track thread's rebase, and a bad-IMU verdict is handed back
+            # (`_pending_reset`).
+            if self.inertial:
+                if frame is None:
+                    frame_l = FrameData(frame_id=int(m.kf_frame_id[k]), timestamp=float(m.kf_timestamp[k]))
+                    frame_l.R, frame_l.t = m.kf_R[k].copy(), m.kf_t[k].copy()
+                else:
+                    frame_l = frame
+                with self.timers.span("map_imu_ladder"):
+                    self._imu_ladder(frame_l, k)
         # Place recognition hand-off (LoopClosing::InsertKeyFrame).
         self._hand_to_loop(k, m, frame)
         log.info(
@@ -2405,6 +2813,8 @@ class Tracker:
             frame.t = m.kf_t[k].copy()
             self.velocity = None
             self._seen_change_idx = m.big_change_idx
+            if self.inertial:
+                self._sync_after_global(frame, k)
 
     def _scene_median_depth(self, k: int) -> float:
         """Median depth of a keyframe's bound landmarks in its own frame
@@ -2645,16 +3055,18 @@ class Tracker:
                 log.debug("fused %d duplicate landmarks around KF %d", n_fused, k)
 
     def _cull_keyframes(self, k: int):
-        """Remove covisible keyframes whose landmarks are >= 90% redundant:
-        seen by >= 3 other keyframes at the same or finer scale
-        (LocalMapping::KeyFrameCulling)."""
+        """Remove covisible keyframes whose landmarks are >= 90% redundant
+        (50% for the stereo and RGB-D inertial sensors): seen by >= 3 other
+        keyframes at the same or finer scale (LocalMapping::KeyFrameCulling).
+        Inertial guard: never open a gap of more than 3 s in the
+        preintegration chain."""
         m = self.map
         neigh, _ = m.covisible_keyframes(k, min_weight=15)
         if len(neigh) == 0:
             return
         valid_ids = np.nonzero(m.kf_valid)[0]
         fid_min = int(m.kf_frame_id[valid_ids].min())
-        red_th = 0.9
+        red_th = 0.5 if self.inertial and self.cfg.sensor != Sensor.IMU_MONOCULAR else 0.9
         # Work bound per insertion, lifted under capacity pressure so the
         # fixed-capacity map cannot grow into exhaustion.
         occupancy = len(valid_ids) / m.cfg.max_keyframes
@@ -2667,6 +3079,12 @@ class Tracker:
                 continue
             if int(m.kf_frame_id[kf]) == fid_min:  # map origin
                 continue
+            if self.inertial:
+                p, nx = int(m.kf_prev[kf]), int(m.kf_next[kf])
+                if p < 0 or nx < 0:
+                    continue
+                if float(m.kf_timestamp[nx] - m.kf_timestamp[p]) > 3.0:
+                    continue
             lm = m.kf_lm_idx[kf]
             f = np.nonzero(lm >= 0)[0]
             if len(f) < 10:
@@ -2848,6 +3266,443 @@ class Tracker:
             m.lm_pos[lms[okl]] = X_new[okl]
 
     # ------------------------------------------------------------------
+    # Visual-inertial mapping (the IMU init ladder, LocalInertialBA,
+    # FullInertialBA)
+    # ------------------------------------------------------------------
+
+    def _attach_inertial_kf(self, k: int, frame: FrameData):
+        """Link the new keyframe into the temporal chain with its velocity,
+        biases and the preintegration since the previous keyframe. Caller
+        holds the map lock."""
+        m = self.map
+        prev = self.last_kf_slot
+        if prev < 0 or not m.kf_valid[prev]:
+            prev = -1
+        raw = np.stack(self._imu_since_kf) if self._imu_since_kf else None
+        m.set_keyframe_inertial(k, self.cur_v, self.cur_bg, self.cur_ba, prev, raw)
+        self._imu_since_kf = []
+        self._imu_since_kf_t = []
+        self._pre_from_kf = None
+        self.last_kf_slot = k
+        if m.imu_t0 < 0:
+            m.imu_t0 = frame.timestamp
+        self._kf_inserted_last_frame = True
+
+    def _imu_ladder(self, frame: FrameData, k: int):
+        """Staged IMU initialization (LocalMapping::Run :232-286):
+        InitializeIMU -> VIBA1 -> VIBA2 -> ScaleRefinement, and the bad-IMU
+        verdict (:170-179)."""
+        m = self.map
+        cfg = self.cfg
+        if m.imu_t0 < 0:
+            return
+        elapsed = frame.timestamp - m.imu_t0
+        if m.imu_stage == 0:
+            chain = m.temporal_window(k, cfg.imu_init_min_kfs + 1)
+            if len(chain) >= cfg.imu_init_min_kfs and elapsed >= cfg.imu_init_time:
+                mono = cfg.sensor == Sensor.IMU_MONOCULAR
+                self._initialize_imu(frame, k, prior_g=1e2, prior_a=1e10 if mono else 1e5, fix_scale=not mono)
+            return
+        # Bad IMU: initialized, but (almost) no camera motion over the last
+        # two keyframe intervals early on means an unconstrained solution:
+        # reset the active map (consumed at src/Tracking.cc:1782).
+        if m.imu_stage < 3:
+            p = int(m.kf_prev[k])
+            pp = int(m.kf_prev[p]) if p >= 0 else -1
+            if p >= 0 and pp >= 0:
+                def cam_c(i):
+                    return -m.kf_R[i].T @ m.kf_t[i]
+
+                dist = np.linalg.norm(cam_c(k) - cam_c(p)) + np.linalg.norm(cam_c(p) - cam_c(pp))
+                if elapsed < cfg.bad_imu_time and dist < cfg.bad_imu_dist:
+                    log.warning("bad IMU: %.3f m motion over the last 2 KFs at t=%.1fs; resetting the active map",
+                                dist, elapsed)
+                    if threading.current_thread().name == "mapping":
+                        self._pending_reset = True  # the track thread resets
+                    else:
+                        self._spawn_or_reset_map()
+                    return
+        if m.imu_stage == 1 and elapsed >= cfg.viba1_time:
+            log.info("VIBA1 at t=%.1fs", elapsed)
+            self._full_inertial_ba(k, prior_g=1.0, prior_a=1e5)
+            m.imu_stage = 2
+            self._sync_after_global(frame, k)
+        elif m.imu_stage == 2 and elapsed >= cfg.viba2_time:
+            log.info("VIBA2 at t=%.1fs", elapsed)
+            self._full_inertial_ba(k, prior_g=0.0, prior_a=0.0)
+            m.imu_stage = 3
+            self._sync_after_global(frame, k)
+        elif (
+            m.imu_stage >= 3
+            and cfg.sensor == Sensor.IMU_MONOCULAR
+            and m.n_keyframes() <= 200
+            and self._scale_refine_idx < len(cfg.scale_refine_times)
+        ):
+            # ScaleRefinement windows (mTinit in (25,25.5) ... (75,75.5)).
+            t_due = cfg.scale_refine_times[self._scale_refine_idx]
+            if elapsed >= t_due:
+                self._scale_refine_idx += 1
+                if elapsed < t_due + cfg.scale_refine_window:
+                    self._scale_refinement(frame, k)
+
+    def _chain_edges(self, k: int):
+        """The whole temporal chain ending at k, oldest first, and its edges
+        (i, j) with their keyframes' stored preintegrations."""
+        m = self.map
+        ks = np.asarray(m.temporal_window(k, 10**6)[::-1], np.int64)
+        ei, ej, pre_ks = [], [], []
+        for idx in range(1, len(ks)):
+            a, b = int(ks[idx - 1]), int(ks[idx])
+            if m.kf_pre_valid[b] and int(m.kf_prev[b]) == a:
+                ei.append(idx - 1)
+                ej.append(idx)
+                pre_ks.append(b)
+        return ks, ei, ej, pre_ks
+
+    def _scale_refinement(self, frame: FrameData, k: int):
+        """LocalMapping::ScaleRefinement (src/LocalMapping.cc:1465): gravity
+        direction and scale alone over the whole chain, everything else
+        fixed; the map is re-aligned when the scale moved by more than 0.2%."""
+        from ..optim import inertial as vi
+
+        m = self.map
+        ks, ei, ej, pre_ks = self._chain_edges(k)
+        if len(ei) < 5:
+            return
+        put = self._put
+        Rwb, twb = self._body_from_cam_np(m.kf_R[ks], m.kf_t[ks])
+        steps = np.linalg.norm(np.diff(twb, axis=0), axis=1)
+        sigma_p = 0.05 * float(np.median(steps)) if len(steps) else 0.0
+        res = vi.inertial_init(
+            put(Rwb), put(twb), put(m.kf_vel[ks]), put(ei, np.int64), put(ej, np.int64),
+            put(np.ones(len(ei), bool)), m.stacked_preint(pre_ks, self.device), 0.0, 0.0,
+            bg0=put(m.kf_bg[k]), ba0=put(m.kf_ba[k]), iters=30, fix_bias=True, fix_vel=True, sigma_p=sigma_p,
+        )
+        Rwg, s = fetch_block((res.Rwg, res.scale))
+        s = float(s)
+        if not np.isfinite(s) or s < 0.1:
+            log.warning("scale refinement rejected: s=%.4f", s)
+            return
+        if abs(s - 1.0) > 0.002:
+            with self.map_lock:
+                m.apply_gravity_scale(Rwg.T.astype(np.float32), s, scale_vel=True)
+            bias = np.concatenate([m.kf_bg[k], m.kf_ba[k]]).astype(np.float32)
+            for b in ks:
+                if m.kf_pre_valid[b]:
+                    m._reintegrate(int(b), bias=bias)
+            log.info("scale refinement: s=%.4f applied (%d KFs)", s, len(ks))
+            self._sync_after_global(frame, k)
+        else:
+            log.info("scale refinement: s=%.4f (no change needed)", s)
+
+    def _initialize_imu(self, frame: FrameData, k: int, prior_g: float, prior_a: float, fix_scale: bool) -> bool:
+        """LocalMapping::InitializeIMU (src/LocalMapping.cc:1189-1463): gravity,
+        scale, biases and velocities with the poses fixed, the world aligned
+        to gravity and rescaled, then a full visual-inertial BA."""
+        from ..optim import inertial as vi
+
+        m = self.map
+        ks, ei, ej, pre_ks = self._chain_edges(k)
+        if len(ei) < 3:
+            return False
+        Rwb, twb = self._body_from_cam_np(m.kf_R[ks], m.kf_t[ks])
+        # Closed-form linear alignment (the scale/gravity/velocity seed),
+        # immune to the whitened GN's scale collapse under keyframe-pose noise.
+        s_lin, g_lin, v_lin = vi.linear_inertial_init(Rwb, twb, ei, ej, m.stacked_preint(pre_ks))
+        if fix_scale:
+            s_lin = 1.0
+        if not np.isfinite(s_lin) or s_lin < 1e-3:
+            log.warning("IMU linear init rejected: scale %.5f", s_lin)
+            return False
+        # Pre-align gravity from the linear estimate, so that the 2-dof
+        # gravity parametrization starts near the identity.
+        g_dir = g_lin / max(np.linalg.norm(g_lin), 1e-9)
+        gI = np.array([0.0, 0.0, -1.0])
+        vx = np.cross(gI, g_dir)
+        ang = np.arctan2(np.linalg.norm(vx), float(gI @ g_dir))
+        axis = vx / max(np.linalg.norm(vx), 1e-9)
+        Rwg_seed = lie.so3_exp(torch.as_tensor(axis * ang, dtype=torch.float32)).numpy()
+        Rg = Rwg_seed.T
+        Rwb_p = np.einsum("ij,kjl->kil", Rg, Rwb).astype(np.float32)
+        twb_p = (twb @ Rg.T).astype(np.float32)
+        # The velocity seed in map units, in the pre-rotated frame.
+        v0 = ((v_lin / s_lin) @ Rg.T).astype(np.float32)
+        # The keyframe-position noise floor: a fraction of the median step.
+        steps = np.linalg.norm(np.diff(twb, axis=0), axis=1)
+        sigma_p = 0.05 * float(np.median(steps)) if len(steps) else 0.0
+        put = self._put
+        res = vi.inertial_init(
+            put(Rwb_p), put(twb_p), put(v0), put(ei, np.int64), put(ej, np.int64), put(np.ones(len(ei), bool)),
+            m.stacked_preint(pre_ks, self.device), prior_g, prior_a, iters=100, fix_scale=fix_scale,
+            log_s0=float(np.float32(np.log(s_lin))), sigma_p=sigma_p,
+        )
+        Rwg, s, bg, ba, vel = fetch_block((res.Rwg, res.scale, res.bg, res.ba, res.vel))
+        s = float(s)
+        if not np.isfinite(s) or (not fix_scale and s < 1e-2):
+            log.warning("IMU init rejected: scale %.4f", s)
+            return False
+        Ryw = (Rwg_seed @ Rwg).T.astype(np.float32)
+        with self.map_lock:
+            # Velocities come back in the pre-rotated world: undo the seed.
+            m.kf_vel[ks] = vel @ Rwg_seed.T
+            m.kf_bg[m.kf_valid] = bg
+            m.kf_ba[m.kf_valid] = ba
+            m.apply_gravity_scale(Ryw, s)
+        bias = np.concatenate([bg, ba]).astype(np.float32)
+        for b in ks:
+            if m.kf_pre_valid[b]:
+                m._reintegrate(int(b), bias=bias)
+        m.imu_stage = 1
+        log.info("IMU initialized: scale %.3f, |bg| %.4f, |ba| %.4f (%d KFs)",
+                 s, np.linalg.norm(bg), np.linalg.norm(ba), len(ks))
+        self._full_inertial_ba(k, prior_g=prior_g, prior_a=prior_a)
+        self._sync_after_global(frame, k)
+        return True
+
+    def _sync_after_global(self, frame: FrameData, k: int):
+        """Re-anchor the live tracking state after a global map change
+        (Tracking::UpdateFrameIMU)."""
+        m = self.map
+        m.big_change_idx += 1
+        frame.R = m.kf_R[k].copy()
+        frame.t = m.kf_t[k].copy()
+        self.cur_v = m.kf_vel[k].copy()
+        self.cur_bg = m.kf_bg[k].copy()
+        self.cur_ba = m.kf_ba[k].copy()
+        Rwb, p = self._body_from_cam_np(frame.R, frame.t)
+        self.last_body = (Rwb, p, self.cur_v.copy())
+        self.velocity = None
+        self.prior_H = None
+        self._kf_inserted_last_frame = True
+
+    def _stacked_pre_padded(self, pre_ks: list[int], cap: int) -> imu_ops.Preintegrated:
+        """The keyframes' stored preintegrations on the tracker's device,
+        padded to `cap` with empty intervals (dR = I, C = 0, dT = 0: their
+        residuals vanish)."""
+        m = self.map
+        n = len(pre_ks)
+        pad = cap - n
+        eye = np.eye(3, dtype=np.float32)
+        z3, z33 = np.zeros(3, np.float32), np.zeros((3, 3), np.float32)
+        fill = dict(dR=eye, dV=z3, dP=z3, C=np.zeros((15, 15), np.float32), JRg=z33, JVg=z33, JVa=z33,
+                    JPg=z33, JPa=z33, dT=np.float32(0.0), bias_gyro=z3, bias_acc=z3)
+        base = m.stacked_preint(np.asarray(pre_ks, np.int64)) if n else None
+
+        def fld(name):
+            shape = np.shape(fill[name])
+            real = getattr(base, name).numpy() if base is not None else np.zeros((0, *shape), np.float32)
+            return self._put(np.concatenate([real, np.broadcast_to(fill[name], (pad, *shape))]), np.float32)
+
+        return imu_ops.Preintegrated(**{name: fld(name) for name in fill})
+
+    def _build_vi_problem(self, opt_kfs: list[int], K_cap: int, obs_cap: int, prior_g: float = 0.0,
+                          prior_a: float = 0.0, lm_cap: int | None = None):
+        """A fixed-capacity VIBAProblem on the tracker's device: the
+        optimizable temporal window, the fixed boundary and observer
+        keyframes, the reprojection observations and the inertial chain
+        edges among them. Returns the problem with what the write-back needs
+        (keyframe slots and generations, landmark ids, the map and its
+        big_change_idx), or None with fewer than 8 landmarks."""
+        from ..optim.inertial import VIBAProblem
+
+        m = self.map
+        cfg = self.cfg
+        lm_cap = cfg.ba_lm_cap if lm_cap is None else lm_cap
+        opt_kfs = list(dict.fromkeys(opt_kfs))
+        # Fixed: the temporal boundary and covisible observers of the window's
+        # landmarks.
+        fixed: list[int] = []
+        b = int(m.kf_prev[opt_kfs[0]])
+        if b >= 0 and m.kf_valid[b] and b not in opt_kfs:
+            fixed.append(b)
+        lms = m.local_map_landmarks(np.asarray(opt_kfs, np.int64))[:lm_cap]
+        if len(lms) < 8:
+            return None
+        other = m.obs[:, lms].any(axis=1) & m.kf_valid
+        other[opt_kfs] = False
+        if fixed:
+            other[fixed] = False
+        fixed += [int(x) for x in np.nonzero(other)[0][: cfg.ba_fixed_cap]]
+        kfs = (opt_kfs + fixed)[:K_cap]
+        n_opt = min(len(opt_kfs), K_cap)
+        pad_k = K_cap - len(kfs)
+        kfs_arr = np.asarray(kfs, np.int64)
+        kf_fixed = np.zeros(len(kfs), bool)
+        kf_fixed[n_opt:] = True
+        if not kf_fixed.any():
+            kf_fixed[0] = True
+
+        lm_lookup = np.full(m.cfg.max_landmarks, -1, np.int64)
+        lm_lookup[lms] = np.arange(len(lms))
+        lm_sub = m.kf_lm_idx[kfs_arr]  # (Kk, N)
+        li = lm_lookup[np.maximum(lm_sub, 0)]
+        o_kf, f_idx = np.nonzero((lm_sub >= 0) & (li >= 0))
+        kf_rows = kfs_arr[o_kf]
+        o_lm = li[o_kf, f_idx]
+        o_uv = (m.kf_xy[kf_rows, f_idx] - [self.cx, self.cy]).astype(np.float32)
+        o_sig = self._feat_sigma2(m.kf_level[kf_rows, f_idx])
+        o_ur = (m.kf_ur[kf_rows, f_idx] - self.cx).astype(np.float32)
+        o_st = m.kf_ur[kf_rows, f_idx] >= 0
+        if len(o_kf) > obs_cap:
+            keep = informed_obs_drop(o_lm, obs_cap, np.random.default_rng(0))
+            o_kf, o_lm, o_uv, o_sig = o_kf[keep], o_lm[keep], o_uv[keep], o_sig[keep]
+            o_ur, o_st = o_ur[keep], o_st[keep]
+        pad_o = obs_cap - len(o_kf)
+        pad_l = lm_cap - len(lms)
+
+        # Inertial edges among the problem's keyframes (the prev -> k chain).
+        slot_of = {int(kk): i for i, kk in enumerate(kfs)}
+        ei, ej, pre_ks = [], [], []
+        for kk in kfs:
+            pkf = int(m.kf_prev[kk])
+            if m.kf_pre_valid[kk] and pkf in slot_of:
+                ei.append(slot_of[pkf])
+                ej.append(slot_of[int(kk)])
+                pre_ks.append(int(kk))
+        E_cap = K_cap
+        n_e = min(len(ei), E_cap)
+        ei, ej, pre_ks = ei[:n_e], ej[:n_e], pre_ks[:n_e]
+        Rwb, twb = self._body_from_cam_np(m.kf_R[kfs_arr], m.kf_t[kfs_arr])
+
+        def padk(x, fill=0):
+            return np.concatenate([x, np.full((pad_k, *x.shape[1:]), fill, x.dtype)])
+
+        def cat(x, n, fill, dtype):
+            x = np.asarray(x, dtype)
+            return np.concatenate([x, np.full((n, *x.shape[1:]), fill, dtype)])
+
+        put = self._put
+        prob = VIBAProblem(
+            Rwb=put(np.concatenate([Rwb, np.tile(np.eye(3, dtype=np.float32), (pad_k, 1, 1))])),
+            twb=put(padk(twb)), vel=put(padk(m.kf_vel[kfs_arr])),
+            bg=put(padk(m.kf_bg[kfs_arr])), ba=put(padk(m.kf_ba[kfs_arr])),
+            kf_valid=put(cat(np.ones(len(kfs), bool), pad_k, False, bool)),
+            kf_fixed=put(cat(kf_fixed, pad_k, True, bool)),
+            Xw=put(cat(m.lm_pos[lms], pad_l, 0.0, np.float32)),
+            lm_valid=put(cat(np.ones(len(lms), bool), pad_l, False, bool)),
+            obs_kf=put(cat(o_kf, pad_o, 0, np.int64)), obs_lm=put(cat(o_lm, pad_o, 0, np.int64)),
+            obs_uvr=put(cat(np.concatenate([o_uv, o_ur[:, None]], 1), pad_o, 0.0, np.float32)),
+            obs_sigma2=put(cat(o_sig, pad_o, 1.0, np.float32)),
+            obs_stereo=put(cat(o_st, pad_o, False, bool)),
+            obs_valid=put(cat(np.ones(len(o_kf), bool), pad_o, False, bool)),
+            edge_i=put(cat(ei, E_cap - n_e, 0, np.int64)), edge_j=put(cat(ej, E_cap - n_e, 0, np.int64)),
+            edge_valid=put(cat(np.ones(n_e, bool), E_cap - n_e, False, bool)),
+            pre=self._stacked_pre_padded(pre_ks, E_cap),
+            Rcb=put(self.Rcb, np.float32), tcb=put(self.tcb, np.float32),
+            fx=float(np.float32(self.fx)), fy=float(np.float32(self.fy)), bf=float(np.float32(cfg.bf)),
+            prior_kf=n_opt - 1,  # the newest optimizable keyframe
+            prior_g=float(np.float32(prior_g)), prior_a=float(np.float32(prior_a)),
+        )
+        return prob, kfs_arr, np.asarray(lms), m, m.kf_gen[kfs_arr].copy(), m.big_change_idx
+
+    def _solve_vi(self, built, iters: int, gate_at: int, sparse: bool = False):
+        """Solve a built problem on its device; host (Rcw, tcw, vel, bg, ba)
+        of its keyframes and the positions of its landmarks."""
+        prob, kfs_arr, lms = built[:3]
+        if sparse:
+            from ..optim.sparse_ba import sparse_vi_ba
+
+            res = sparse_vi_ba(prob, iters=iters, gate_at=gate_at)
+        else:
+            from ..optim.inertial import visual_inertial_ba
+
+            res = visual_inertial_ba(prob, iters=iters, gate_at=gate_at)
+        n = len(kfs_arr)
+        Rwb, twb, vel, bg, ba, Xw = fetch_block((res.Rwb, res.twb, res.vel, res.bg, res.ba, res.Xw))
+        Rcw, tcw = self._cam_from_body_np(Rwb[:n], twb[:n])
+        return Rcw, tcw, vel[:n], bg[:n], ba[:n], Xw[: len(lms)]
+
+    def _run_vi_ba(self, built, iters: int, gate_at: int, sparse: bool = False):
+        """Solve and write back under the map lock: keyframe rows guarded by
+        generation, landmark rows by liveness, and the whole result dropped
+        if another thread corrected the map meanwhile."""
+        Rcw, tcw, vel, bg, ba, Xw = self._solve_vi(built, iters, gate_at, sparse)
+        _, kfs, lms, m, gen0, big0 = built
+        with self.map_lock:
+            if m is not self.map or m.big_change_idx != big0:
+                return
+            ok = m.kf_valid[kfs] & (m.kf_gen[kfs] == gen0)
+            k = kfs[ok]
+            m.kf_R[k], m.kf_t[k] = Rcw[ok], tcw[ok]
+            m.kf_vel[k], m.kf_bg[k], m.kf_ba[k] = vel[ok], bg[ok], ba[ok]
+            okl = m.lm_valid[lms]
+            m.lm_pos[lms[okl]] = Xw[okl]
+
+    def _local_inertial_ba(self, k: int):
+        """LocalInertialBA (src/Optimizer.cc:2371): the temporal window of the
+        last keyframes through the prev chain, the boundary and the observers
+        fixed."""
+        window = self.map.temporal_window(k, self.cfg.local_window_kfs)[::-1]
+        built = self._build_vi_problem(window, K_cap=self.cfg.vi_kf_cap, obs_cap=self.cfg.ba_obs_cap)
+        if built is not None:
+            self._run_vi_ba(built, iters=10, gate_at=5)
+
+    def _full_vi_problem(self, k: int, prior_g: float = 0.0, prior_a: float = 0.0):
+        """The whole temporal chain ending at k as one problem: the dense
+        window capacities up to `vi_full_kf_cap` keyframes, else map-scale
+        capacities (keyframes bucketed to multiples of 64) for the sparse
+        solver. Returns (built, sparse)."""
+        cfg = self.cfg
+        chain = self.map.temporal_window(k, 10**6)[::-1]
+        if len(chain) <= cfg.vi_full_kf_cap:
+            return self._build_vi_problem(chain, K_cap=cfg.vi_full_kf_cap + cfg.ba_fixed_cap, obs_cap=cfg.vi_obs_cap,
+                                          prior_g=prior_g, prior_a=prior_a), False
+        K_cap = -(-(len(chain) + cfg.ba_fixed_cap) // 64) * 64
+        K_cap = min(K_cap, cfg.map_cfg.max_keyframes + cfg.ba_fixed_cap)
+        return self._build_vi_problem(chain, K_cap=K_cap, obs_cap=cfg.gba_obs_cap, prior_g=prior_g,
+                                      prior_a=prior_a, lm_cap=cfg.map_cfg.max_landmarks), True
+
+    def _full_inertial_ba(self, k: int, prior_g: float, prior_a: float, iters: int = 15):
+        """FullInertialBA (src/Optimizer.cc:378): the whole temporal chain,
+        the bias prior on the newest keyframe; the dense solver for short
+        chains, the sparse PCG-Schur solver for long ones."""
+        built, sparse = self._full_vi_problem(k, prior_g, prior_a)
+        if built is not None:
+            self._run_vi_ba(built, iters=iters, gate_at=min(8, iters - 2) if sparse else 8, sparse=sparse)
+
+    def _vi_global_ba_background(self, k: int):
+        """FullInertialBA on the global-BA thread (RunGlobalBundleAdjustment
+        with FullInertialBA): the problem is built under the map lock, solved
+        on its own thread and written back through `_gba_apply`, which
+        patches keyframes and landmarks created during the solve; velocities
+        and biases follow, generation-guarded. A failure of the thread is
+        re-raised at the next `flush_mapping`."""
+        if self._gba_thread is not None and self._gba_thread.is_alive():
+            log.warning("global BA already running; skipping new request")
+            return
+        m = self.map
+        with self.map_lock:
+            built, sparse = self._full_vi_problem(k)
+            if built is None:
+                return
+            kfs_arr, lms = built[1], built[2]
+            snap = dict(map=m, kf_R=m.kf_R.copy(), kf_t=m.kf_t.copy(), kf_valid=m.kf_valid.copy(),
+                        kf_gen=m.kf_gen.copy(), Xw=m.lm_pos.copy(), lm_valid=m.lm_valid.copy(),
+                        lm_gen=m.lm_gen.copy())
+
+        def run():
+            try:
+                with self.timers.span("global_ba"):
+                    Rcw, tcw, vel, bg, ba, Xw = self._solve_vi(built, iters=7, gate_at=4, sparse=sparse)
+                    # Full-size update arrays: unsolved rows keep their snapshot.
+                    R_new, t_new, X_new = snap["kf_R"].copy(), snap["kf_t"].copy(), snap["Xw"].copy()
+                    R_new[kfs_arr], t_new[kfs_arr] = Rcw, tcw
+                    X_new[lms] = Xw
+                    self._gba_apply(snap, R_new, t_new, X_new)
+                    with self.map_lock:
+                        if m is self.map:
+                            ok = m.kf_valid[kfs_arr] & (m.kf_gen[kfs_arr] == snap["kf_gen"][kfs_arr])
+                            m.kf_vel[kfs_arr[ok]] = vel[ok]
+                            m.kf_bg[kfs_arr[ok]] = bg[ok]
+                            m.kf_ba[kfs_arr[ok]] = ba[ok]
+            except BaseException as e:  # noqa: BLE001 - re-raised at the next flush
+                log.exception("background inertial global BA failed")
+                self._gba_error = e
+
+        self._gba_thread = threading.Thread(target=run, name="global_ba_vi", daemon=True)
+        self._gba_thread.start()
+
+    # ------------------------------------------------------------------
     # Global BA (whole map)
     # ------------------------------------------------------------------
 
@@ -2985,6 +3840,16 @@ class Tracker:
         draining. A failure of that thread is re-raised at the next
         `flush_mapping` (and so at shutdown)."""
         if not self.cfg.enable_global_ba:
+            return
+        m = self.map
+        if self.inertial and m.imu_stage >= 1:
+            # FullInertialBA(7), inline or on the global-BA thread.
+            if self.worker is None:
+                with self.timers.span("global_ba"):
+                    self._full_inertial_ba(k, prior_g=0.0, prior_a=0.0, iters=7)
+                m.big_change_idx += 1  # the inline solve writes directly
+            else:
+                self._vi_global_ba_background(k)
             return
         if self.worker is None:
             with self.timers.span("global_ba"):

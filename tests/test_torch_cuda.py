@@ -400,3 +400,248 @@ def test_merge_essential_graph_on_card_matches_cpu(dev, mode):
     assert np.abs(a.kf_t - b.kf_t).max() <= 1e-4 and np.abs(a.kf_R - b.kf_R).max() <= 1e-4, "tolerance: 1e-4"
     assert np.abs(a.lm_pos - b.lm_pos).max() <= 1e-3, "tolerance: landmarks within 1e-3 of the CPU"
     assert -a.kf_R[9].T @ a.kf_t[9] @ np.array([0, 1, 0]) > 0.15, "the correction reached the free keyframes"
+
+
+# ----------------------------------------------------------------- inertial
+
+
+def _circle(t, r=2.0, w=0.6):
+    """Body state on a horizontal circle at angular rate w: Rwb, p, v, world
+    acceleration, body rates (tests/test_inertial.py's `circle_state`)."""
+    c, s = np.cos(w * t), np.sin(w * t)
+    x_b, z_b = np.array([-s, c, 0.0]), np.array([c, s, 0.0])
+    Rwb = np.stack([x_b, np.cross(z_b, x_b), z_b], axis=1)
+    return (Rwb.astype(np.float32), np.array([r * c, r * s, 0.0], np.float32),
+            (r * w * np.array([-s, c, 0.0])).astype(np.float32), -r * w * w * np.array([c, s, 0.0]),
+            Rwb.T @ np.array([0.0, 0.0, w]))
+
+
+def _imu_rows(t0, t1, freq=200.0):
+    """Exact IMU rows [dt, acc, gyro] on the circle over [t0, t1]."""
+    n = max(int(round((t1 - t0) * freq)), 1)
+    dt = (t1 - t0) / n
+    rows = []
+    for k in range(n):
+        Rwb, _, _, a_w, w_b = _circle(t0 + (k + 0.5) * dt)
+        rows.append(np.concatenate([[dt], Rwb.T @ (a_w - np.array([0.0, 0.0, -9.81])), w_b]))
+    return np.asarray(rows, np.float32)
+
+
+def _calib(device):
+    from orbslam3_cpp_fork_tpu_torch.ops import imu
+
+    return imu.ImuCalib.create(1.7e-4, 2e-3, 1.9e-5, 3e-3, 200.0, device=device)
+
+
+def _preint(rows, device, bias=None):
+    from orbslam3_cpp_fork_tpu_torch.ops import imu
+
+    r = torch.from_numpy(rows).to(device)
+    b = torch.zeros(6, device=device) if bias is None else torch.from_numpy(bias).to(device)
+    return imu.preintegrate(r[:, 1:4], r[:, 4:7], r[:, 0], _calib(device), b[:3], b[3:])
+
+
+def test_preintegrate_on_card_matches_cpu(dev):
+    """64 seeded rows at seeded biases: every field within 1e-5 of its
+    largest magnitude."""
+    rng = np.random.default_rng(0)
+    rows = np.concatenate([np.full((64, 1), 0.005), rng.normal(0, 1, (64, 3)) + [0, 0, 9.81],
+                           rng.normal(0, 0.5, (64, 3))], 1).astype(np.float32)
+    bias = rng.normal(0, 0.02, 6).astype(np.float32)
+    a, b = _preint(rows, dev, bias), _preint(rows, "cpu", bias)
+    for f in convert.PREINT_FIELDS:
+        x, y = getattr(a, f).cpu(), getattr(b, f)
+        assert float((x - y).abs().max()) <= 1e-5 * max(float(y.abs().max()), 1e-30), f
+
+
+@pytest.mark.parametrize("anchor_fixed", [True, False])
+def test_pose_inertial_optimization_on_card_matches_cpu(dev, anchor_fixed):
+    """tests/test_inertial.py's pose problem (made here without the
+    reference): the frame state within 1e-4 of the CPU's, biases 1e-5,
+    inliers exact, the marginal prior 1e-3 relative."""
+    from orbslam3_cpp_fork_tpu_torch.optim import inertial as vi
+
+    rng = np.random.default_rng(1)
+    R1, p1, v1, _, _ = _circle(0.0)
+    R2, p2, v2, _, _ = _circle(0.4)
+    pc = np.concatenate([rng.uniform(-2, 2, (160, 2)), rng.uniform(4, 12, (160, 1))], 1)
+    Xw = (pc @ R2.T + p2).astype(np.float32)
+    uv = 400.0 * pc[:, :2] / pc[:, 2:] + rng.normal(0, 0.3, (160, 2))
+    uvr = np.concatenate([uv, np.zeros((160, 1))], 1).astype(np.float32)
+    dR = np.asarray(_circle(0.05)[0] @ _circle(0.0)[0].T, np.float32)
+    H = None if anchor_fixed else (np.eye(15) * 50.0).astype(np.float32)
+    out = {}
+    for d in (dev, "cpu"):
+        def T(x):
+            return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(d)
+
+        z = torch.zeros(3, device=d)
+        res = vi.pose_inertial_optimization(
+            T(R1), T(p1), T(v1), z, z, T(R2 @ dR), T(p2 + [0.05, -0.04, 0.06]), T(v2 + [0.2, -0.1, 0.15]), z, z,
+            _preint(_imu_rows(0.0, 0.4), d), T(Xw), T(uvr), torch.ones(160, device=d),
+            torch.ones(160, dtype=torch.bool, device=d), torch.zeros(160, dtype=torch.bool, device=d),
+            torch.eye(3, device=d), z, 400.0, 400.0, 0.0, H_prior=None if H is None else T(H), anchor_fixed=anchor_fixed,
+        )
+        out[str(d)] = {k: getattr(res, k).cpu() for k in ("Rwb", "p", "v", "bg", "ba", "inliers", "H_marg")}
+    g, c = out[str(dev)], out["cpu"]
+    for k in ("Rwb", "p", "v"):
+        assert float((g[k] - c[k]).abs().max()) <= 1e-4, k
+    for k in ("bg", "ba"):
+        assert float((g[k] - c[k]).abs().max()) <= 1e-5, k
+    assert torch.equal(g["inliers"], c["inliers"]) and int(g["inliers"].sum()) > 100
+    assert float((g["H_marg"] - c["H_marg"]).abs().max()) <= 1e-3 * float(c["H_marg"].abs().max())
+
+
+def _vi_problem(seed=3, n_kf=6, n_lm=96, pad_o=64):
+    """A temporal window of the circle with shared landmarks, every state
+    but the first perturbed (tests/test_sparse_ba.py's `_make_vi_problem`,
+    made here without the reference), as a dict for
+    `convert.vi_problem_from_numpy`, with its preintegrations."""
+    rng = np.random.default_rng(seed)
+    states = [_circle(0.4 * k) for k in range(n_kf)]
+    Rwb = np.stack([s[0] for s in states])
+    p = np.stack([s[1] for s in states])
+    v = np.stack([s[2] for s in states])
+    pc0 = np.concatenate([rng.uniform(-2, 2, (n_lm, 2)), rng.uniform(4, 12, (n_lm, 1))], 1)
+    Xw = pc0 @ Rwb[0].T + p[0]
+    o_kf, o_lm, o_uv = [], [], []
+    for k in range(n_kf):
+        pc = (Xw - p[k]) @ Rwb[k]
+        uv = 400.0 * pc[:, :2] / np.maximum(pc[:, 2:], 1e-6) + rng.normal(0, 0.3, (n_lm, 2))
+        ids = np.nonzero((pc[:, 2] > 0.5) & (np.abs(uv) < 400).all(1))[0]
+        o_kf += [k] * len(ids)
+        o_lm += list(ids)
+        o_uv.append(uv[ids])
+    O = len(o_kf)
+    Rp, pp, vp = Rwb.copy(), p.copy(), v.copy()
+    for k in range(1, n_kf):
+        w = rng.normal(0, 0.01, 3)
+        Rp[k] = Rp[k] @ torch.linalg.matrix_exp(torch.tensor([[0, -w[2], w[1]], [w[2], 0, -w[0]], [-w[1], w[0], 0]])).numpy()
+        pp[k] = pp[k] + rng.normal(0, 0.03, 3)
+        vp[k] = vp[k] + rng.normal(0, 0.1, 3)
+    pres = [convert.preintegrated_to_numpy(_preint(_imu_rows(0.4 * k, 0.4 * (k + 1)), "cpu")) for k in range(n_kf - 1)]
+    fixed = np.zeros(n_kf, bool)
+    fixed[0] = True
+    return dict(
+        Rwb=Rp, twb=pp, vel=vp, bg=np.zeros((n_kf, 3)), ba=np.zeros((n_kf, 3)), kf_valid=np.ones(n_kf, bool),
+        kf_fixed=fixed, Xw=Xw + rng.normal(0, 0.03, Xw.shape), lm_valid=np.ones(n_lm, bool),
+        obs_kf=np.concatenate([o_kf, np.zeros(pad_o)]), obs_lm=np.concatenate([o_lm, np.zeros(pad_o)]),
+        obs_uvr=np.concatenate([np.concatenate([np.concatenate(o_uv), np.zeros((O, 1))], 1), np.zeros((pad_o, 3))]),
+        obs_sigma2=np.ones(O + pad_o), obs_stereo=np.zeros(O + pad_o, bool), obs_valid=np.arange(O + pad_o) < O,
+        edge_i=np.arange(n_kf - 1), edge_j=np.arange(1, n_kf), edge_valid=np.ones(n_kf - 1, bool),
+        pre={k: np.stack([d[k] for d in pres]) for k in convert.PREINT_FIELDS},
+        Rcb=np.eye(3), tcb=np.zeros(3), fx=400.0, fy=400.0, bf=0.0, prior_kf=n_kf - 1, prior_g=1e2, prior_a=1e5,
+    )
+
+
+@pytest.mark.parametrize("solver", ["dense", "sparse"])
+def test_vi_ba_on_card_is_reproducible_and_matches_cpu(dev, solver):
+    """`visual_inertial_ba` / `sparse_vi_ba` on the card: two runs give the
+    same bits, and the states are within 1e-4 (landmarks 1e-3) of the CPU's."""
+    from orbslam3_cpp_fork_tpu_torch.optim.inertial import visual_inertial_ba
+    from orbslam3_cpp_fork_tpu_torch.optim.sparse_ba import sparse_vi_ba
+
+    solve = visual_inertial_ba if solver == "dense" else sparse_vi_ba
+    d = _vi_problem()
+    a = solve(convert.vi_problem_from_numpy(d, dev), iters=10, gate_at=5)
+    b = solve(convert.vi_problem_from_numpy(d, dev), iters=10, gate_at=5)
+    c = solve(convert.vi_problem_from_numpy(d, "cpu"), iters=10, gate_at=5)
+    for k in ("Rwb", "twb", "vel", "bg", "ba", "Xw"):
+        assert torch.equal(getattr(a, k), getattr(b, k)), f"{k}: two runs on the card give the same bits"
+        tol = 1e-3 if k == "Xw" else 1e-4
+        assert float((getattr(a, k).cpu() - getattr(c, k)).abs().max()) <= tol, k
+    assert float(np.linalg.norm(a.twb.cpu().numpy() - np.stack([_circle(0.4 * k)[1] for k in range(6)]), axis=1).mean()) \
+        < 0.4 * float(np.linalg.norm(d["twb"] - np.stack([_circle(0.4 * k)[1] for k in range(6)]), axis=1).mean())
+
+
+def test_graphed_calls_replay_the_eager_bits(dev):
+    """`device.GraphedCall`: the VI pose optimization and a padded
+    preintegration replayed from CUDA graphs give the eager call's bits, for
+    a second set of inputs too (the graph's inputs are copied in)."""
+    from orbslam3_cpp_fork_tpu_torch.device import GraphedCall
+    from orbslam3_cpp_fork_tpu_torch.ops import imu
+    from orbslam3_cpp_fork_tpu_torch.optim import inertial as vi
+
+    calib = _calib(dev)
+    fields = convert.PREINT_FIELDS
+
+    def preint(b, *state):
+        s0 = imu.Preintegrated(*state)
+        out = imu.preintegrate(b[:, 1:4], b[:, 4:7], b[:, 0], calib, s0.bias_gyro, s0.bias_acc, init=s0,
+                               valid=b[:, 7] > 0)
+        return [getattr(out, f) for f in fields]
+
+    z = torch.zeros(3, device=dev)
+    call = GraphedCall(preint)
+    for t1 in (0.1, 0.3):
+        rows = _imu_rows(0.0, t1)[:20]
+        buf = np.zeros((24, 8), np.float32)
+        buf[: len(rows), :7] = rows
+        buf[: len(rows), 7] = 1.0
+        b = torch.from_numpy(buf).to(dev)
+        init = imu.Preintegrated.identity(z, z)
+        got = call(b, *[getattr(init, f) for f in fields])
+        ref = preint(b, *[getattr(init, f) for f in fields])
+        assert all(torch.equal(g, r) for g, r in zip(got, ref))
+
+    def pose(*a):
+        res = vi.pose_inertial_optimization(*a[:10], imu.Preintegrated(*a[10:22]), *a[22:29], 400.0, 400.0, 0.0,
+                                            anchor_fixed=True)
+        return res.Rwb, res.p, res.v, res.bg, res.ba, res.H_marg, res.inliers
+
+    call = GraphedCall(pose)
+    rng = np.random.default_rng(2)
+    for shift in (0.0, 0.02):
+        R1, p1, v1, _, _ = _circle(0.0)
+        R2, p2, v2, _, _ = _circle(0.4)
+        pc = np.concatenate([rng.uniform(-2, 2, (256, 2)), rng.uniform(4, 12, (256, 1))], 1)
+        Xw = (pc @ R2.T + p2).astype(np.float32)
+        uvr = np.concatenate([400.0 * pc[:, :2] / pc[:, 2:], np.zeros((256, 1))], 1).astype(np.float32)
+
+        def T(x):
+            return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(dev)
+
+        pre = _preint(_imu_rows(0.0, 0.4), dev)
+        a = [T(R1), T(p1), T(v1), z, z, T(R2), T(p2 + shift), T(v2), z, z, *[getattr(pre, f) for f in fields],
+             T(Xw), T(uvr), torch.ones(256, device=dev), torch.ones(256, dtype=torch.bool, device=dev),
+             torch.zeros(256, dtype=torch.bool, device=dev), torch.eye(3, device=dev), z]
+        assert all(torch.equal(g, r) for g, r in zip(call(*a), pose(*a)))
+
+
+@pytest.mark.parametrize("sensor", ["IMU_STEREO", "IMU_RGBD"])
+def test_inertial_system_tracks_on_the_card(dev, sensor):
+    """System(settings, IMU_STEREO | IMU_RGBD) on the card: the map starts at
+    the first frame and every frame of a short circle with its IMU rows is
+    tracked (IMU_MONOCULAR runs in chip_smoke.py's inertial phase)."""
+    from orbslam3_cpp_fork_tpu_torch.runtime.system import System
+    from orbslam3_cpp_fork_tpu_torch.runtime.tracker import Sensor, TrackState
+    from orbslam3_cpp_fork_tpu_torch.utils import settings as tsettings
+
+    scene = synthetic.make_ring_scene(seed=5)
+    K = scene.K
+    s = tsettings.Settings(
+        camera_type="PinHole", camera=convert.camera_from_numpy(K[0, 0], K[1, 1], K[0, 2], K[1, 2]),
+        width=scene.width, height=scene.height, fps=10.0, rgb=False, n_features=1000, scale_factor=1.2,
+        n_levels=8, ini_th_fast=20, min_th_fast=7, bf=0.2 * K[0, 0], stereo_th_depth=40.0, depth_map_factor=1.0,
+        imu=tsettings.ImuSettings(noise_gyro=1.7e-4, noise_acc=2e-3, walk_gyro=1.9e-5, walk_acc=3e-3,
+                                  frequency=200.0, Tbc=np.eye(4, dtype=np.float32)),
+    )
+    system = System(s, Sensor[sensor], async_mapping=False, enable_loop_closing=False, device=dev)
+    try:
+        for i in range(4):
+            t = 0.1 * i
+            Rwb, p, _, _, _ = _circle(t)
+            img = synthetic.to_u8(synthetic.render_frame(scene, Rwb, p))
+            rows = None
+            if i:
+                r = _imu_rows(t - 0.1, t)
+                rows = np.concatenate([(t - 0.1 + np.cumsum(r[:, 0]))[:, None], r[:, 1:]], 1).astype(np.float32)
+            if sensor == "IMU_STEREO":
+                right = synthetic.to_u8(synthetic.render_frame(scene, *synthetic.stereo_right_pose(Rwb, p, 0.2)))
+                T = system.track_stereo(img, right, t, imu=rows)
+            else:
+                T = system.track_rgbd(img, synthetic.render_depth(scene, Rwb, p), t, imu=rows)
+            assert T is not None and np.isfinite(T).all(), i
+        assert system.get_tracking_state() == TrackState.OK and system.tracker.inertial
+    finally:
+        system.shutdown()

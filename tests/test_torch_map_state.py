@@ -122,10 +122,44 @@ def test_round_trip_from_the_reference_map():
 
 
 def test_inertial_hooks_are_refused():
-    m = tms.MapState(tms.MapConfig(max_keyframes=4, max_landmarks=16, n_features=8, imu_cap=4))
-    for call in (lambda: m._reintegrate(0), lambda: m.store_preint(0, None), lambda: m.stacked_preint(np.arange(2))):
-        with pytest.raises(NotImplementedError, match="A13"):
-            call()
+    """The inertial hooks that used to refuse (`_reintegrate`, `store_preint`,
+    `stacked_preint`) now run: the same raw rows attached to a chain of
+    keyframes, re-integrated at a new bias, one keyframe culled (its rows
+    spliced into its successor's) and the window stacked, against the
+    reference's MapState: every preintegration field to 1e-5 relative."""
+    from orbslam3_cpp_fork_tpu.ops import imu as jimu
+    from orbslam3_cpp_fork_tpu_torch.ops import imu as timu
+
+    noise = (1.7e-4, 2e-3, 1.9e-5, 3e-3, 200.0)
+    maps = []
+    for mod, calib in ((jms, jimu.ImuCalib.create(*noise)), (tms, timu.ImuCalib.create(*noise))):
+        rng = np.random.default_rng(5)
+        m = mod.MapState(mod.MapConfig(max_keyframes=8, max_landmarks=16, n_features=8, imu_cap=64))
+        m._imu_calib = calib
+        prev = -1
+        for k in range(5):
+            m.add_keyframe(np.eye(3, dtype=np.float32), np.zeros(3, np.float32), np.zeros((8, 2), np.float32),
+                           np.zeros(8, np.int32), np.zeros(8, np.float32), np.zeros((8, 8), np.uint32),
+                           np.zeros(8, bool), np.full(8, -1, np.int32), 0.1 * k, k)
+            rows = np.concatenate([np.full((20, 1), 0.005), rng.normal(0, 1, (20, 3)) + [0, 0, 9.81],
+                                   rng.normal(0, 0.4, (20, 3))], 1).astype(np.float32)
+            bias = rng.normal(0, 0.01, 3).astype(np.float32)
+            m.set_keyframe_inertial(k, np.zeros(3, np.float32), bias, bias * 3, prev, rows if prev >= 0 else None)
+            prev = k
+        m._reintegrate(3, bias=np.array([0.01, -0.02, 0.005, 0.05, 0.02, -0.03], np.float32))
+        m.remove_keyframe(2)
+        maps.append(m)
+    ref, got = maps
+    for k in ("kf_pre_valid", "kf_prev", "kf_next", "kf_imu_n", "kf_imu"):
+        assert np.array_equal(getattr(got, k), getattr(ref, k)), k
+    for k in ("kf_pre_dR", "kf_pre_dV", "kf_pre_dP", "kf_pre_C", "kf_pre_J", "kf_pre_dT", "kf_pre_bias"):
+        r, g = getattr(ref, k), getattr(got, k)
+        assert np.abs(g - r).max() <= 1e-5 * max(float(np.abs(r).max()), 1e-30), k
+    ks = np.array([1, 3, 4])
+    st_r, st_g = ref.stacked_preint(ks), got.stacked_preint(ks)
+    for k in convert.PREINT_FIELDS:
+        r, g = np.asarray(getattr(st_r, k), np.float32), getattr(st_g, k).numpy()
+        assert g.shape == r.shape and np.abs(g - r).max() <= 1e-5 * max(float(np.abs(r).max()), 1e-30), k
 
 
 def test_device_keyframe_store_mirrors_the_map():

@@ -203,10 +203,10 @@ def test_system_builds_the_tracker_configuration(tmp_path):
 @pytest.mark.parametrize(
     "kw,item",
     [
-        (dict(sensor=Sensor.IMU_MONOCULAR), "A13"),
-        (dict(sensor=Sensor.IMU_STEREO), "A13"),
-        (dict(use_viewer=True), "A15"),
-        (dict(live_viewer=True), "A15"),
+        # The two A13 cases (IMU sensors) construct now: they are cases of
+        # tests/test_torch_tracker.py::test_unsupported_configs_are_refused.
+        pytest.param(dict(use_viewer=True), "A15", id="kw2-A15"),
+        pytest.param(dict(live_viewer=True), "A15", id="kw3-A15"),
     ],
 )
 def test_system_refuses_what_is_not_ported(kw, item):
@@ -476,8 +476,9 @@ ORBextractor.minThFAST: 7
 
 def test_tumvi_settings_build_system(tmp_path):
     """tests/test_fisheye_stereo.py::test_tumvi_settings_build_system on the
-    port, with the visual STEREO sensor (IMU_STEREO is A13): a KB8 rig
-    builds the fisheye stereo configuration and tracks a pair."""
+    port, with the visual STEREO sensor (its IMU_STEREO case is one of
+    tests/test_torch_tracker.py::test_unsupported_configs_are_refused): a
+    KB8 rig builds the fisheye stereo configuration and tracks a pair."""
     p = tmp_path / "tumvi.yaml"
     p.write_text(TUMVI_YAML)
     system = System(str(p), Sensor.STEREO, async_mapping=False, enable_loop_closing=False, device="cpu")
@@ -508,3 +509,39 @@ def test_system_resets_and_changes_dataset():
     system.reset_active_map()
     assert system.atlas.n_maps() == 1 and system.atlas.active.map_id == 0
     system.shutdown()
+
+
+def test_imu_stereo_rectified_rig_carries_tbc(pinhole_rig):
+    """IMU_STEREO on the unrectified pinhole rig: the rectifying rotation R1
+    reaches the IMU extrinsic (Tbc T_u1_r1, src/Settings.cc:524-530), and the
+    tracker's Tbc, bf and rectified camera equal the reference's from the
+    same settings (1e-6)."""
+    from orbslam3_cpp_fork_tpu.runtime import system as jsys
+    from orbslam3_cpp_fork_tpu.runtime.tracker import Sensor as JSensor
+
+    K1, dist1, K2, dist2, T = pinhole_rig
+    Tbc = np.eye(4, dtype=np.float32)
+    Tbc[:3, :3] = np.array([[0, -1, 0], [1, 0, 0], [0, 0, 1]], np.float32)
+    Tbc[:3, 3] = [-0.02, 0.06, 0.01]
+    runs = []
+    for cam_mod, smod, sys_cls, sensor, kw in (
+        (jcam, jsettings, jsys.System, JSensor.IMU_STEREO, {}),
+        (None, tsettings, System, Sensor.IMU_STEREO, dict(enable_loop_closing=False, device="cpu")),
+    ):
+        pin = cam_mod.Camera.pinhole if cam_mod is not None else Camera.pinhole
+        s = smod.Settings(
+            camera_type="PinHole", camera=pin(K1[0, 0], K1[1, 1], K1[0, 2], K1[1, 2], dist=tuple(dist1)),
+            camera2=pin(K2[0, 0], K2[1, 1], K2[0, 2], K2[1, 2], dist=tuple(dist2)), width=752, height=480, fps=20.0,
+            rgb=False, n_features=500, scale_factor=1.2, n_levels=4, ini_th_fast=20, min_th_fast=7, Tlr=T,
+            stereo_th_depth=35.0,
+            imu=smod.ImuSettings(noise_gyro=1.7e-4, noise_acc=2e-3, walk_gyro=1.9e-5, walk_acc=3e-3, frequency=200.0,
+                                 Tbc=Tbc),
+        )
+        system = sys_cls(s, sensor, async_mapping=False, **kw)
+        cfg = system.tracker.cfg
+        runs.append((np.asarray(cfg.imu.Tbc, np.float64), float(cfg.bf),
+                     np.array([cfg.camera.fx, cfg.camera.fy, cfg.camera.cx, cfg.camera.cy], np.float64)))
+        system.shutdown()
+    (Tr, bfr, camr), (Tg, bfg, camg) = runs
+    assert not np.allclose(Tg, Tbc)  # R1 is not the identity on this rig
+    assert np.abs(Tg - Tr).max() <= 1e-6 and abs(bfg - bfr) <= 1e-6 * bfr and np.abs(camg - camr).max() <= 1e-4

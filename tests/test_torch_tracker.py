@@ -4,8 +4,9 @@
     frames go through both trackers' `_initialize` with the same RANSAC index
     sets; (b) one `_mapping_step` on a map loaded into both through
     `convert.map_state_from_numpy`; (c) the slice as a whole, port only, on
-    the scene of tests/test_tracking_e2e.py; (d) configurations outside the
-    slice are refused and the asynchronous ones construct. A JAX-vs-port run of the whole sequence is marked
+    the scene of tests/test_tracking_e2e.py; (d) the inertial configurations,
+    once refused, construct with the reference's settings, and the
+    asynchronous ones construct. A JAX-vs-port run of the whole sequence is marked
     slow.
 
 Cut to size for the CPU: 600 features (as the reference's e2e test), a map
@@ -236,22 +237,108 @@ def test_mapping_step_parity(tracked, sequence):
 # --------------------------------------------------------------------- (d)
 
 
+# The IMU block of tests/test_fisheye_stereo.py's TUM-VI settings.
+IMU_YAML = """IMU.NoiseGyro: 0.00016
+IMU.NoiseAcc: 0.0028
+IMU.GyroWalk: 0.000022
+IMU.AccWalk: 0.00086
+IMU.Frequency: 200.0
+IMU.T_b_c1: !!opencv-matrix
+  rows: 4
+  cols: 4
+  dt: f
+  data: [-0.99953, 0.00930, -0.02907, 0.04536,
+         0.02941, 0.01216, -0.99949, -0.07139,
+         -0.00894, -0.99988, -0.01243, -0.04491,
+         0.0, 0.0, 0.0, 1.0]
+"""
+
+
+def _imu_yaml(tmp_path, sensor_name):
+    """A settings file with that IMU block: tests/test_torch_system.py's
+    EuRoC mono YAML for IMU_MONOCULAR, its TUM-VI KB8 rig for IMU_STEREO
+    (tests/test_fisheye_stereo.py:168)."""
+    import test_torch_system as ts
+
+    p = tmp_path / "settings.yaml"
+    p.write_text((ts.TUMVI_YAML if sensor_name == "IMU_STEREO" else ts.YAML) + IMU_YAML)
+    return str(p)
+
+
+def _same_config(ref, got):
+    """The reference's tracker and the port's agree on the sensor, the IMU
+    settings and calibration, the body-from-camera extrinsic, bf and the loop
+    closer's scale mode (1e-6 on floats, f32 on both sides)."""
+    rc, gc = ref.cfg, got.cfg
+    assert gc.sensor.name == rc.sensor.name and got.inertial == ref.inertial
+    assert abs(gc.bf - float(rc.bf)) <= 1e-6 * max(1.0, abs(float(rc.bf)))
+    assert (rc.imu is None) == (gc.imu is None)
+    if rc.imu is not None:
+        for f in ("noise_gyro", "noise_acc", "walk_gyro", "walk_acc", "freq"):
+            assert getattr(gc.imu, f) == getattr(rc.imu, f), f
+        assert np.allclose(np.asarray(gc.imu.Tbc), np.asarray(rc.imu.Tbc), atol=1e-6)
+    if ref.inertial:
+        assert np.allclose(got.Rbc, ref.Rbc, atol=1e-6) and np.allclose(got.tcb, ref.tcb, atol=1e-6)
+        for f in ("sigma_gyro", "sigma_acc", "walk_gyro", "walk_acc"):
+            assert float(getattr(got.imu_calib, f)) == float(getattr(ref.imu_calib, f)), f
+    assert (ref.loop_closer is None) == (got.loop_closer is None)
+    if ref.loop_closer is not None:
+        assert got.loop_closer.cfg.fix_scale == ref.loop_closer.cfg.fix_scale
+
+
 @pytest.mark.parametrize(
     "kw,item",
     [
-        (dict(sensor=tt.Sensor.IMU_MONOCULAR), "A13"),
-        (dict(imu=object()), "A13"),
-        (dict(sensor=tt.Sensor.IMU_STEREO), "A13"),
-        (dict(sensor=tt.Sensor.IMU_RGBD), "A13"),
+        (dict(sensor="IMU_MONOCULAR"), "A13"),
+        (dict(imu=True), "A13"),
+        (dict(sensor="IMU_STEREO", bf=80.0), "A13"),
+        (dict(sensor="IMU_RGBD", bf=80.0), "A13"),
+        pytest.param(dict(system="IMU_MONOCULAR"), "A13", id="system-IMU_MONOCULAR"),
+        pytest.param(dict(system="IMU_STEREO"), "A13", id="system-IMU_STEREO"),
     ],
 )
-def test_unsupported_configs_are_refused(kw, item):
-    base = dict(camera=convert.camera_from_numpy(400, 400, 320, 240), async_mapping=False, enable_loop_closing=False)
-    with pytest.raises(NotImplementedError, match=item):
-        tt.MonoTracker(tt.TrackerConfig(**{**base, **kw}), "cpu")
-    # The reference's default (loop closing and global BA on, both workers)
-    # is the port's too.
-    trk = tt.MonoTracker(tt.TrackerConfig(camera=base["camera"]), "cpu")
+def test_unsupported_configs_are_refused(kw, item, tmp_path):
+    """The configurations that used to be refused naming ROADMAP `item`
+    (A13, the inertial slice) now construct, through Tracker and through
+    System (the IMU_STEREO case is the TUM-VI KB8 rig of
+    tests/test_fisheye_stereo.py:168, which also tracks a pair), each with
+    the reference's configuration from the same settings (`_same_config`).
+    The reference's default (loop closing and global BA on, both workers) is
+    the port's too."""
+    if "system" in kw:
+        from orbslam3_cpp_fork_tpu.runtime import system as jsys
+        from orbslam3_cpp_fork_tpu_torch.runtime.system import System
+
+        path = _imu_yaml(tmp_path, kw["system"])
+        ref = jsys.System(path, jt.Sensor[kw["system"]], async_mapping=False)
+        got = System(path, tt.Sensor[kw["system"]], async_mapping=False, device="cpu")
+        try:
+            _same_config(ref.tracker, got.tracker)
+            if kw["system"] == "IMU_STEREO":
+                assert got.tracker.cfg.camera2.kind == "kb8" and got.tracker.cfg.lapping_l == (0.0, 511.0)
+                img = np.random.default_rng(2).uniform(0, 255, (512, 512)).astype(np.float32)
+                got.track_stereo(img, img, 0.0, imu=np.zeros((0, 7), np.float32))
+        finally:
+            ref.shutdown()
+            got.shutdown()
+    else:
+        cam = dict(camera=(400.0, 400.0, 320.0, 240.0))
+        fields = dict(async_mapping=False, enable_loop_closing=True)
+        if "sensor" in kw:
+            fields["sensor"] = kw["sensor"]
+        if "bf" in kw:
+            fields["bf"] = kw["bf"]
+        imu = kw.get("imu")
+        ref = jt.Tracker(jt.TrackerConfig(
+            camera=jcam.Camera.pinhole(*cam["camera"]), imu=jt.ImuSettings(freq=100.0) if imu else None,
+            **{**fields, "sensor": jt.Sensor[fields.get("sensor", "MONOCULAR")]},
+        ))
+        got = tt.Tracker(tt.TrackerConfig(
+            camera=convert.camera_from_numpy(*cam["camera"]), imu=tt.ImuSettings(freq=100.0) if imu else None,
+            **{**fields, "sensor": tt.Sensor[fields.get("sensor", "MONOCULAR")]},
+        ), "cpu")
+        _same_config(ref, got)
+    trk = tt.MonoTracker(tt.TrackerConfig(camera=convert.camera_from_numpy(400, 400, 320, 240)), "cpu")
     try:
         assert trk.cfg.enable_loop_closing and trk.cfg.enable_global_ba
         assert trk.loop_closer is not None and trk.loop_worker is not None and trk.worker is not None

@@ -1,0 +1,30 @@
+"""The port's IMU_RGBD tracker against the reference's from the same state, at
+320x240: the IMU init from the reference's state at its `_initialize_imu`
+call, then 5 frames from its state after that frame (tests/vi_same_state.py
+has the scene, the gates and their tolerances)."""
+
+import pytest
+import torch
+
+import vi_same_state
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def tracked():
+    return vi_same_state.tracked("rgbd")
+
+
+def test_initialize_imu_from_the_same_state(tracked):
+    vi_same_state.check_initialize_imu(tracked)
+
+
+def test_next_frames_from_the_same_state(tracked):
+    vi_same_state.check_next_frames(tracked)
