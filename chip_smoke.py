@@ -152,6 +152,42 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                + 10 mm, |scale - 1| < 0.05. Reports host ms a frame and per
                window VI BA and the preintegration's kernel launches a frame.
                orb_describe runs once a frame, twice a pair.
+ 12. entry   - the port's entry(): fused_track_step at the reference's
+               shapes (640x480, L = 2048, 1000 features, inputs from
+               default_rng(0)) on the card: finite R2, t2 and n_in, one
+               describe launch a call counted on the card, and n_in equal and
+               the pose within 1e-3 of the same fn on CPU inputs.
+ 13. shell   - the port's command-line drivers, in-process, on EuRoC-layout
+               trees written to a temporary directory (PNG frames,
+               imu0/data.csv, a File.version 1.0 settings file). Part A:
+               mono_euroc on the bench ring's first 60 frames at 752x480
+               (1000 features, 8 levels) in the default mode with --viewer
+               and --live-viewer: the trajectory files written with more than
+               80% of the frames in order, the scale-aligned ATE within
+               max(JAX driver, port driver on the CPU, same tree) + 10 mm,
+               one describe launch a frame, viewer_out/map.ply, map.html and
+               a frame PNG written, and /state.json, fetched once mid-run,
+               reporting the live map's keyframes and landmarks. Part B:
+               stereo_euroc on the stereo phase's first 30 pairs and part C:
+               mono_inertial_euroc on the inertial phase's first 45 frames
+               with their 200 Hz IMU rows, both in the default mode and
+               gated by the exported poses with the rules of the stereo
+               phase's part C and the inertial phase's part B (2 describe
+               launches a pair, 1 a frame).
+ 14. scale   - dryrun_multichip(2): two gloo ranks on the one card, each
+               building the same tiny map and taking the sharded path of
+               Tracker._global_ba, then a sharded FullInertialBA. Then loop
+               A's final map (its keyframes, landmarks and observations
+               printed) through its whole-map BA, and the inertial phase's
+               map through its FullInertialBA in the sparse solver's
+               capacities, each solved locally on the card and twice sharded
+               over 2 gloo ranks on the card: every rank bitwise equal to
+               every other, the two sharded runs bitwise equal, sharded vs
+               local within tests/test_dist_ba.py's bars (t and R 2e-3, Xw
+               5e-3; VI twb and Xw 5e-3), every solve lowering the cost; host
+               ms and all-reduces a solve printed. With more than one card,
+               NCCL with a card per rank too; with one, a line says it was
+               skipped.
 `--profile N` adds a torch.profiler pass over N frames (kernel launches and
 device time per frame, host time per stage) and over the SLAM phase's
 tracked frames and mapping steps, `--compare-routes` a timing of the tracker
@@ -326,6 +362,22 @@ VI_JAX_ATE_M = 0.08602397722054414
 VI_PORT_ATE_M = 0.07992365339961789
 VI_STEREO_JAX_ATE_M = 0.0363071075563861
 VI_STEREO_PORT_ATE_M = 0.03667004520882259
+# Entry phase: the card's (R2, t2) against the same fn on CPU inputs.
+ENTRY_TOL = 1e-3
+# Shell phase: the drivers run in-process on EuRoC-layout trees written here.
+SHELL_FRAMES = 60  # of the bench ring, 752x480, 1000 features, 8 levels
+SHELL_STEREO_PAIRS = 30  # of the stereo phase's rig
+SHELL_VI_FRAMES = 45  # of the inertial phase's scene
+SHELL_STATE_AT = 30  # the live viewer's state is fetched once, at or after this frame
+# Scale-aligned ATE (m) of the mono driver in the default mode on the same
+# tree on a CPU: the reference's examples/mono_euroc.py and the port's
+# driver (pytest -m slow -s tests/test_torch_drivers.py -k full_width).
+SHELL_JAX_ATE_M = 0.013079752449215278
+SHELL_PORT_ATE_M = 0.016065074099849305
+# Scale phase: tests/test_dist_ba.py's bars, sharded against local.
+SCALE_TOL_POSE = 2e-3  # t (m) and R (rad)
+SCALE_TOL_LM = 5e-3  # Xw (m); VI twb too
+SCALE_RANKS = 2
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOPS = 67e12  # H100 SXM data sheet, float32 outside the tensor cores
 
@@ -1016,10 +1068,10 @@ def render_loop():
     return scene, Rs, ts, frames
 
 
-def render_stereo_loop(n_frames=STEREO_FRAMES):
+def render_stereo_loop(n_frames=STEREO_FRAMES, count=None):
     """The scene of tests/test_stereo_loop_e2e.py at 752x480 over a 2.3 pi
     circle of `n_frames`: scene, GT camera-to-world poses, uint8 (left,
-    right) pairs of the 0.2 m rig."""
+    right) pairs of the 0.2 m rig; the first `count` of them if given."""
     import numpy as np
 
     from orbslam3_cpp_fork_tpu_torch.datasets import synthetic
@@ -1027,12 +1079,13 @@ def render_stereo_loop(n_frames=STEREO_FRAMES):
     scene = synthetic.make_ring_scene(seed=13, n_points=900, size_range=(9, 15), width=STEREO_WIDTH,
                                       height=STEREO_HEIGHT)
     Rs, ts = synthetic.circle_trajectory(n_frames=n_frames, radius=2.5, total_angle=STEREO_TURNS * np.pi)
+    count = n_frames if count is None else count
     pairs = [
         (synthetic.to_u8(synthetic.render_frame(scene, Rs[i], ts[i])),
          synthetic.to_u8(synthetic.render_frame(scene, *synthetic.stereo_right_pose(Rs[i], ts[i], STEREO_BASELINE))))
-        for i in range(n_frames)
+        for i in range(count)
     ]
-    return scene, Rs, ts, pairs
+    return scene, Rs[:count], ts[:count], pairs
 
 
 def render_rgbd():
@@ -1299,7 +1352,7 @@ def phase_loop(dev, orb_params, gate_ate):
         fail(f"loop C: not relocalized within {RELOC_WITHIN} frames (at {recovered_at})")
     if not err < RELOC_TOL_M:
         fail(f"loop C: relocalized centre {err:.4f} m from the ground truth (< {RELOC_TOL_M} m required)")
-    return launches
+    return launches, runs[0][0]  # loop A's first tracker: the scale phase solves its map
 
 
 def run_stereo_sync(dev, scene, pairs, orb_params):
@@ -1524,7 +1577,7 @@ def phase_stereo(dev, orb_params, gate_ate):
     if gate_ate and not ate_c.rmse <= bound_c:
         fail(f"stereo C: unscaled ATE of the tracked poses {ate_c.rmse:.6f} m > {bound_c:.6f} m")
     launches += remap_check(dev, scene, Rs[0], ts[0])
-    return launches, launches_rgbd, worst
+    return launches, launches_rgbd, worst, float(ate.rmse)  # part A's unscaled ATE
 
 
 def render_merge():
@@ -2081,7 +2134,430 @@ def phase_inertial(dev, orb_params, gate_ate):
         fail(f"inertial C: scale {ate_c.scale:.4f} (|scale - 1| < {STEREO_SCALE_TOL} required)")
     if gate_ate and not ate_c.rmse <= bound_c:
         fail(f"inertial C: unscaled ATE {ate_c.rmse:.6f} m > {bound_c:.6f} m")
-    return launches, worst
+    return launches, worst, float(ate.rmse_scaled), trk  # part A's ATE and tracker
+
+
+def phase_entry(dev):
+    """The port's entry(): fused_track_step at the reference's shapes on the
+    card, one describe launch a call, held against the same fn on the CPU."""
+    import numpy as np
+    import torch
+
+    from orbslam3_cpp_fork_tpu_torch.entry import entry
+
+    fn, args = entry()
+    if any(a.device != dev for a in args):
+        fail(f"entry: inputs on {sorted({str(a.device) for a in args})}, not on {dev}")
+    fn(*args)  # the first call of its shapes
+    read = counted(dev)
+    t0 = time.perf_counter()
+    R2, t2, n_in = fn(*args)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    cnt, host = read()
+    R2, t2, n_in = R2.cpu().numpy(), t2.cpu().numpy(), int(n_in)
+    fn_c, args_c = entry("cpu")
+    Rc, tc, nc = fn_c(*args_c)
+    Rc, tc, nc = Rc.numpy(), tc.numpy(), int(nc)
+    err = max(float(np.abs(R2 - Rc).max()), float(np.abs(t2 - tc).max()))
+    log(f"entry: fused_track_step at 640x480, L = 2048, 1000 features: n_in {n_in} (CPU {nc}), pose vs the CPU's "
+        f"{err:.3g} (tolerance {ENTRY_TOL}); {1e3 * secs:.1f} ms a call (host clock, synchronized); describe "
+        f"launches {cnt} on the card ({host} by the wrapper) for 1 call")
+    if cnt != 1 or host != 1:
+        fail(f"entry: orb_describe ran {cnt} times on the card ({host} by the wrapper) for one call")
+    if not (np.isfinite(R2).all() and np.isfinite(t2).all()):
+        fail("entry: the pose is not finite")
+    if n_in != nc or not err <= ENTRY_TOL:
+        fail(f"entry: card (n_in {n_in}) against CPU (n_in {nc}): pose {err:.3g} apart (<= {ENTRY_TOL} required)")
+    return cnt
+
+
+def euroc_settings(path, scene, fps, extra=""):
+    """A File.version 1.0 settings file for a rendered pinhole camera, the
+    main path's ORB (1000 features, 8 levels)."""
+    K = scene.K
+    Path(path).write_text(
+        f"""%YAML:1.0
+File.version: "1.0"
+Camera.type: "PinHole"
+Camera1.fx: {float(K[0, 0])!r}
+Camera1.fy: {float(K[1, 1])!r}
+Camera1.cx: {float(K[0, 2])!r}
+Camera1.cy: {float(K[1, 2])!r}
+Camera.width: {scene.width}
+Camera.height: {scene.height}
+Camera.fps: {fps}
+Camera.RGB: 0
+ORBextractor.nFeatures: {N_FEATURES}
+ORBextractor.scaleFactor: 1.2
+ORBextractor.nLevels: {N_LEVELS}
+ORBextractor.iniThFAST: 20
+ORBextractor.minThFAST: 7
+{extra}""")
+
+
+SHELL_IMU_YAML = """IMU.NoiseGyro: 1.7e-4
+IMU.NoiseAcc: 2.0e-3
+IMU.GyroWalk: 1.9e-5
+IMU.AccWalk: 3.0e-3
+IMU.Frequency: 200.0
+IMU.T_b_c1: !!opencv-matrix
+   rows: 4
+   cols: 4
+   dt: f
+   data: [1.0, 0.0, 0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 0.0, 1.0]
+"""
+
+
+def write_euroc_tree(root, seq, stamps, frames, imu_rows=None):
+    """An EuRoC (ASL) sequence: mav0/cam0/data/<ns>.png (and cam1 for
+    (left, right) pairs) and mav0/imu0/data.csv (t_ns, gyro, acc; from
+    `imu_rows` [t, acc, gyro], else a gravity-only stream at 200 Hz). Stamps
+    start near 0: the drivers and the tracker hold IMU times as float32
+    (ROADMAP R17)."""
+    import numpy as np
+
+    from orbslam3_cpp_fork_tpu_torch.utils.viewer import save_png
+
+    mav = Path(root) / seq / "mav0"
+    stereo = isinstance(frames[0], tuple)
+    for i, (t, f) in enumerate(zip(stamps, frames)):
+        for cam, img in zip(("cam0", "cam1"), f if stereo else (f,)):
+            d = mav / cam / "data"
+            d.mkdir(parents=True, exist_ok=True)
+            save_png(str(d / f"{int(round(t * 1e9))}.png"), np.asarray(img, np.uint8))
+    if imu_rows is None:
+        t_imu = np.arange(int(stamps[-1] * 200) + 2) / 200.0
+        imu_rows = np.concatenate([t_imu[:, None], np.tile([[0.0, 0.0, 9.81, 0.0, 0.0, 0.0]], (len(t_imu), 1))], 1)
+    (mav / "imu0").mkdir(parents=True, exist_ok=True)
+    with open(mav / "imu0" / "data.csv", "w") as fh:
+        fh.write("#timestamp [ns],w_x,w_y,w_z,a_x,a_y,a_z\n")
+        for r in np.asarray(imu_rows, np.float32):
+            vals = [float(x) for x in (*r[4:7], *r[1:4])]
+            fh.write(f"{int(round(float(r[0]) * 1e9))}," + ",".join(repr(v) for v in vals) + "\n")
+
+
+def run_driver(name, argv, spy=None):
+    """main(argv) of a port driver, in this process; returns the System it
+    built (`spy(system)` is called before the first frame)."""
+    import importlib
+
+    module = importlib.import_module(f"orbslam3_cpp_fork_tpu_torch.examples.{name}")
+    real, built = module.System, []
+
+    def make(*a, **kw):
+        system = real(*a, **kw)
+        built.append(system)
+        if spy is not None:
+            spy(system)
+        return system
+
+    module.System = make
+    try:
+        module.main(argv)
+    finally:
+        module.System = real
+    return built[0]
+
+
+def poll_state(port, at_frame, out, stop):
+    """Fetch the live viewer's /state.json until it reports a frame at or
+    after `at_frame`; keep that one state in `out`."""
+    import json
+    import urllib.error
+    import urllib.request
+
+    while not stop.is_set():
+        try:
+            state = json.loads(urllib.request.urlopen(f"http://127.0.0.1:{port}/state.json", timeout=5).read())
+        except (urllib.error.URLError, ConnectionError, TimeoutError):
+            state = None
+        if state is not None and state["frame_id"] >= at_frame:
+            out.append(state)
+            return
+        stop.wait(0.1)
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def driver_poses(name, path, n, dt, dead):
+    """The poses a driver exported (TUM file): stamps, Twc, which of them
+    were tracked while OK; gated in time order, finite, > 80% of n."""
+    import numpy as np
+
+    from orbslam3_cpp_fork_tpu_torch.utils.trajectory import read_tum
+
+    ts_est, Twc = read_tum(str(path))
+    if len(ts_est) / n <= ASYNC_MIN_COVERAGE or not np.all(np.diff(ts_est) > 0) or not np.isfinite(Twc).all():
+        fail(f"shell {name}: {len(ts_est)} of {n} poses exported, or not in order, or not finite")
+    return ts_est, Twc, np.asarray([int(round(t / dt)) not in dead for t in ts_est], bool)
+
+
+def phase_shell(dev, orb_params, stereo_ate, vi_ate, gate_ate):
+    """The port's drivers in-process on EuRoC trees (module docstring,
+    phase 13)."""
+    import os
+    import tempfile
+    import threading
+
+    import numpy as np
+
+    from orbslam3_cpp_fork_tpu_torch.utils.evaluation import ate_rmse
+
+    launches = 0
+    scene, Rs, ts, frames = render_ring(SHELL_FRAMES)
+    n = len(frames)
+    stamps = np.arange(n) * 0.05
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        # Part A: mono_euroc in the default mode with both viewers.
+        write_euroc_tree(root, "RING", stamps, frames)
+        euroc_settings(root / "mono.yaml", scene, 20)
+        port, state, stop = free_port(), [], threading.Event()
+        poller = threading.Thread(target=poll_state, args=(port, SHELL_STATE_AT, state, stop), daemon=True)
+        cwd = os.getcwd()
+        os.chdir(root)  # viewer_out/ goes here
+        read = counted(dev)
+        t0 = time.perf_counter()
+        poller.start()
+        try:
+            system = run_driver("mono_euroc", [
+                str(root / "mono.yaml"), str(root), "RING", "--traj", str(root / "f.txt"), "--kf-traj",
+                str(root / "kf.txt"), "--viewer", "--live-viewer", "--live-viewer-port", str(port),
+                "--log-level", "WARNING", "--device", str(dev),
+            ])
+        finally:
+            stop.set()
+            poller.join(timeout=30)
+            os.chdir(cwd)
+        secs = time.perf_counter() - t0
+        cnt, host = read()
+        ts_est, Twc, _ = driver_poses("A", root / "f.txt", n, 0.05, set())
+        ate = ate_rmse(ts_est, Twc[:, :3, 3], stamps, ts)
+        have = {f: (root / "viewer_out" / f).is_file() for f in ("map.ply", "map.html", "frame_000000.png")}
+        kf_lines = len((root / "kf.txt").read_text().splitlines())
+        bound = max(SHELL_JAX_ATE_M, SHELL_PORT_ATE_M) + TOL_LOOP_ATE_M
+        trk = system.tracker
+        log(f"shell A (mono_euroc, default mode, {n} frames of the bench ring at 752x480, --viewer --live-viewer): "
+            f"{len(ts_est)} poses exported, {kf_lines} keyframe poses; state {trk.state.name}, pipelined frames "
+            f"{trk.n_pipelined_frames}; scale-aligned ATE {ate.rmse_scaled:.6f} m over {ate.n_pairs} poses (scale "
+            f"{ate.scale:.4f}); bound max({SHELL_JAX_ATE_M:.6f}, {SHELL_PORT_ATE_M:.6f}) + {TOL_LOOP_ATE_M} = "
+            f"{bound:.6f} m; {secs:.2f} s with the "
+            f"driver's start and shutdown; describe launches {cnt}; viewer files {have}")
+        if cnt != n or host != n:
+            fail(f"shell A: orb_describe ran {cnt} times on the card ({host} by the wrapper) for {n} frames")
+        launches += cnt
+        if not all(have.values()):
+            fail(f"shell A: viewer files missing: {have}")
+        if not state:
+            fail(f"shell A: the live viewer's /state.json never reported frame {SHELL_STATE_AT} or later")
+        st = state[0]
+        log(f"shell A: /state.json at frame {st['frame_id']}: state {st['state']}, {st['n_keyframes']} keyframes, "
+            f"{st['n_landmarks']} landmarks, {len(st['points'])} points, {len(st['traj'])} trajectory centres")
+        if not (st["n_landmarks"] > 0 and len(st["points"]) == st["n_landmarks"] and st["n_keyframes"] >= 2
+                and len(st["traj"]) == st["n_keyframes"]):
+            fail(f"shell A: the live state does not report the live map: {({k: st[k] for k in ('n_keyframes', 'n_landmarks')})}")
+        if gate_ate and not ate.rmse_scaled <= bound:
+            fail(f"shell A: scale-aligned ATE {ate.rmse_scaled:.6f} m > {bound:.6f} m")
+
+        # Part B: stereo_euroc, 30 pairs of the stereo phase's rig, the
+        # default mode (the stereo phase's part C rules).
+        scene_s, Rs_s, ts_s, pairs = render_stereo_loop(count=SHELL_STEREO_PAIRS)
+        m = len(pairs)
+        stamps_s = np.arange(m) * 0.05
+        write_euroc_tree(root, "STEREO", stamps_s, pairs)
+        K = scene_s.K
+        euroc_settings(root / "stereo.yaml", scene_s, 30,
+                       f"Camera.bf: {STEREO_BASELINE * float(K[0, 0])!r}\nStereo.ThDepth: 40.0\n")
+        spied = []
+        read = counted(dev)
+        t0 = time.perf_counter()
+        system = run_driver("stereo_euroc", [str(root / "stereo.yaml"), str(root), "STEREO", "--traj",
+                                             str(root / "s.txt"), "--kf-traj", str(root / "skf.txt"),
+                                             "--log-level", "WARNING", "--device", str(dev)],
+                            spy=lambda system: spied.append(spy_dead_reckoned(system.tracker)))
+        secs = time.perf_counter() - t0
+        cnt, host = read()
+        ts_e, Twc_e, tracked = driver_poses("B", root / "s.txt", m, 0.05, spied[0])
+        ate_s = ate_rmse(ts_e[tracked], Twc_e[tracked, :3, 3], stamps_s, ts_s)
+        bound_s = ASYNC_ATE_FACTOR * stereo_ate + ASYNC_ATE_SLACK_M
+        log(f"shell B (stereo_euroc, default mode, {m} pairs at 752x480): {len(ts_e)} poses exported, "
+            f"{int(tracked.sum())} tracked while OK; unscaled ATE of those {ate_s.rmse:.6f} m (scale {ate_s.scale:.4f}); "
+            f"bound {ASYNC_ATE_FACTOR} x {stereo_ate:.6f} + {ASYNC_ATE_SLACK_M} = {bound_s:.6f} m; {secs:.2f} s; "
+            f"describe launches {cnt}; the System's sensor {system.sensor.name}")
+        if cnt != 2 * m or host != 2 * m:
+            fail(f"shell B: orb_describe ran {cnt} times on the card ({host} by the wrapper) for {m} pairs")
+        launches += cnt
+        if gate_ate and not ate_s.rmse <= bound_s:
+            fail(f"shell B: unscaled ATE of the tracked poses {ate_s.rmse:.6f} m > {bound_s:.6f} m")
+
+        # Part C: mono_inertial_euroc on the inertial phase's scene, the
+        # default mode (the inertial phase's part B rules).
+        scene_v, stamps_v, Rs_v, ts_v, frames_v, rows = render_inertial(*VI_MONO_SIZE, n_frames=SHELL_VI_FRAMES)
+        k = len(frames_v)
+        write_euroc_tree(root, "BOB", stamps_v, frames_v, imu_rows=np.concatenate(rows[1:]))
+        euroc_settings(root / "vi.yaml", scene_v, 30, SHELL_IMU_YAML)
+        spied = []
+        read = counted(dev)
+        t0 = time.perf_counter()
+        system = run_driver("mono_inertial_euroc", [str(root / "vi.yaml"), str(root), "BOB", "--traj",
+                                                    str(root / "v.txt"), "--kf-traj", str(root / "vkf.txt"),
+                                                    "--log-level", "WARNING", "--device", str(dev)],
+                            spy=lambda system: spied.append(spy_dead_reckoned(system.tracker)))
+        secs = time.perf_counter() - t0
+        cnt, host = read()
+        ts_e, Twc_e, tracked = driver_poses("C", root / "v.txt", k, 1.0 / VI_FPS, spied[0])
+        ate_v = ate_rmse(ts_e[tracked], Twc_e[tracked, :3, 3], stamps_v, ts_v)
+        bound_v = ASYNC_ATE_FACTOR * vi_ate + ASYNC_ATE_SLACK_M
+        stage = system.tracker.map.imu_stage
+        log(f"shell C (mono_inertial_euroc, default mode, {k} frames at 752x480 with 200 Hz IMU rows): "
+            f"{len(ts_e)} poses exported, {int(tracked.sum())} tracked while OK; IMU stage {stage}; scale-aligned ATE "
+            f"of those {ate_v.rmse_scaled:.6f} m (scale {ate_v.scale:.4f}); bound {ASYNC_ATE_FACTOR} x {vi_ate:.6f} + "
+            f"{ASYNC_ATE_SLACK_M} = {bound_v:.6f} m; {secs:.2f} s; describe launches {cnt}")
+        if cnt != k or host != k:
+            fail(f"shell C: orb_describe ran {cnt} times on the card ({host} by the wrapper) for {k} frames")
+        launches += cnt
+        if stage < 1:
+            fail("shell C: the IMU never initialized")
+        if not abs(ate_v.scale - 1.0) < VI_ASYNC_SCALE_TOL:
+            fail(f"shell C: scale {ate_v.scale:.4f} (|scale - 1| < {VI_ASYNC_SCALE_TOL} required)")
+        if gate_ate and not ate_v.rmse_scaled <= bound_v:
+            fail(f"shell C: scale-aligned ATE of the tracked poses {ate_v.rmse_scaled:.6f} m > {bound_v:.6f} m")
+    return launches
+
+
+def rot_err(Ra, Rb):
+    """Largest angle (rad) between corresponding rotations, in float64 from
+    the chord ||Ra - Rb||_F = 2 sqrt(2) sin(angle / 2) (arccos of the trace
+    reads 5e-4 rad for equal float32 rotations)."""
+    import numpy as np
+
+    chord = np.linalg.norm(np.asarray(Ra, np.float64) - np.asarray(Rb, np.float64), axis=(-2, -1))
+    return float((2.0 * np.arcsin(np.clip(chord / (2.0 * np.sqrt(2.0)), 0.0, 1.0))).max(initial=0.0))
+
+
+def timed_solve(solve, prob, **kw):
+    """(host result, host ms) of one local solve on the card."""
+    import torch
+
+    from orbslam3_cpp_fork_tpu_torch.parallel.launch import to_host
+
+    if prob.Xw.is_cuda:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = to_host(solve(prob, **kw))
+    return res, (time.perf_counter() - t0) * 1e3
+
+
+def phase_scale(dev, loop_trk, vi_trk):
+    """The sharded whole-map BAs (module docstring, phase 14)."""
+    import numpy as np
+    import torch
+
+    from orbslam3_cpp_fork_tpu_torch.entry import dryrun_multichip
+    from orbslam3_cpp_fork_tpu_torch.optim import sparse_ba
+    from orbslam3_cpp_fork_tpu_torch.parallel import launch
+
+    n = SCALE_RANKS
+    t0 = time.perf_counter()
+    out = dryrun_multichip(n, device=dev.type)
+    same = all(np.array_equal(out[0][k], o[k]) for o in out for k in ("kf_R", "kf_t", "lm_pos", "vi_twb", "vi_Xw"))
+    log(f"scale: dryrun_multichip({n}) (gloo, every rank on {dev}): sharded global BAs {[o['sharded_solves'] for o in out]}, "
+        f"{out[0]['gba_all_reduces']} all-reduces, ranks bitwise equal {same}; {time.perf_counter() - t0:.2f} s")
+    if [o["sharded_solves"] for o in out] != [1] * n or not same:
+        fail("scale: the dry run's global BA did not take the sharded path on every rank, or the ranks differ")
+
+    # Loop A's final map: its whole-map BA as the tracker builds it.
+    snap = loop_trk._gba_gather()
+    prob = loop_trk._gba_problem(snap)
+    iters = loop_trk.cfg.gba_iters
+    kw = dict(iters=iters, gate_at=max(2, iters // 2))
+    kf, lm = snap["kf_valid"], snap["lm_valid"]
+    log(f"scale: loop A's final map: {int(kf.sum())} keyframes, {int(lm.sum())} landmarks, {snap['n_obs']} "
+        f"observations (padded to {prob.obs_kf.shape[0]}; capacities {kf.size} keyframes, {lm.size} landmarks); "
+        f"schedule {kw}, 60 CG iterations")
+    cost0 = float(sparse_ba.sparse_ba(prob, iters=0).cost)
+    local, local_ms = timed_solve(sparse_ba.sparse_ba, prob, **kw)
+    # The inertial phase's map: its FullInertialBA over the whole chain, in
+    # the sparse solver's capacities (the foreground solve's schedule).
+    m = vi_trk.map
+    ks = np.nonzero(m.kf_valid)[0]
+    cap = vi_trk.cfg.vi_full_kf_cap
+    vi_trk.cfg.vi_full_kf_cap = 0
+    try:
+        built, sparse = vi_trk._full_vi_problem(int(ks[np.argmax(m.kf_frame_id[ks])]))
+    finally:
+        vi_trk.cfg.vi_full_kf_cap = cap
+    if not sparse or built is None:
+        fail("scale: the inertial map's FullInertialBA problem was not built for the sparse solver")
+    vprob, vkfs, vlms = built[0], built[1], built[2]
+    kw_vi = dict(iters=15, gate_at=8)
+    log(f"scale: the inertial phase's FullInertialBA: {len(vkfs)} keyframes, {len(vlms)} landmarks, "
+        f"{int(vprob.obs_valid.sum())} observations (padded to {vprob.obs_kf.shape[0]}); schedule {kw_vi}, 80 CG "
+        f"iterations")
+    vcost0 = float(sparse_ba.sparse_vi_ba(vprob, iters=0).cost)
+    vlocal, vlocal_ms = timed_solve(sparse_ba.sparse_vi_ba, vprob, **kw_vi)
+
+    host_p, host_v = launch.to_host(prob), launch.to_host(vprob)
+    jobs = [(host_p, kw), (host_p, kw), (host_v, kw_vi), (host_v, kw_vi)]
+    t0 = time.perf_counter()
+    ranks = launch.run_ranks(launch.solve_sharded, n, jobs, device=dev.type, backend="gloo")
+    spawn_s = time.perf_counter() - t0
+    for j in range(len(jobs)):
+        for r in range(1, n):
+            for k, v in vars(ranks[0][j]["result"]).items():
+                if isinstance(v, np.ndarray) and not np.array_equal(v, getattr(ranks[r][j]["result"], k)):
+                    fail(f"scale: job {j}: rank {r}'s {k} differs from rank 0's")
+    for a, b in ((0, 1), (2, 3)):
+        for k, v in vars(ranks[0][a]["result"]).items():
+            if isinstance(v, np.ndarray) and not np.array_equal(v, getattr(ranks[0][b]["result"], k)):
+                fail(f"scale: the second sharded run's {k} differs from the first's (jobs {a}, {b})")
+    sh, vsh = ranks[0][0]["result"], ranks[0][2]["result"]
+    d_t = float(np.abs(sh.t[kf] - local.t[kf]).max())
+    d_R = rot_err(sh.R[kf], local.R[kf])
+    d_X = float(np.abs(sh.Xw[lm] - local.Xw[lm]).max())
+    nk, nl = len(vkfs), len(vlms)
+    v_t = float(np.abs(vsh.twb[:nk] - vlocal.twb[:nk]).max())
+    v_X = float(np.abs(vsh.Xw[:nl] - vlocal.Xw[:nl]).max())
+    bits = {name: all(np.array_equal(getattr(a, k), getattr(b, k)) for k in fields)
+            for name, a, b, fields in (("visual", sh, local, ("R", "t", "Xw", "cost", "obs_inlier")),
+                                       ("inertial", vsh, vlocal, ("Rwb", "twb", "vel", "bg", "ba", "Xw", "cost")))}
+    ms = [[round(job["ms"], 1) for job in r] for r in ranks]
+    log(f"scale: visual global BA: local on the card {local_ms:.1f} ms, sharded over {n} gloo ranks on {dev} "
+        f"{ms[0][0]:.1f} and {ms[0][1]:.1f} ms (rank 0; every rank {ms}), {ranks[0][0]['all_reduces']} all-reduces a "
+        f"solve; cost {cost0:.3f} -> local {float(local.cost):.3f}, sharded {float(sh.cost):.3f}; sharded vs local t "
+        f"{d_t:.3g} m, R {d_R:.3g} rad, Xw {d_X:.3g} m (bitwise equal to the local solve: {bits['visual']}); ranks "
+        f"and runs bitwise equal")
+    log(f"scale: FullInertialBA (sparse): local {vlocal_ms:.1f} ms, sharded {ms[0][2]:.1f} and {ms[0][3]:.1f} ms, "
+        f"{ranks[0][2]['all_reduces']} all-reduces a solve; cost {vcost0:.3f} -> local {float(vlocal.cost):.3f}, "
+        f"sharded {float(vsh.cost):.3f}; sharded vs local twb {v_t:.3g} m, Xw {v_X:.3g} m (bitwise equal to the local "
+        f"solve: {bits['inertial']}); ranks and runs bitwise equal; {spawn_s:.2f} s for the ranks' start and the four "
+        f"sharded solves")
+    if not (d_t <= SCALE_TOL_POSE and d_R <= SCALE_TOL_POSE and d_X <= SCALE_TOL_LM):
+        fail(f"scale: sharded vs local visual BA: t {d_t:.3g}, R {d_R:.3g} (<= {SCALE_TOL_POSE}), Xw {d_X:.3g} "
+             f"(<= {SCALE_TOL_LM}) required")
+    if not (v_t <= SCALE_TOL_LM and v_X <= SCALE_TOL_LM):
+        fail(f"scale: sharded vs local FullInertialBA: twb {v_t:.3g}, Xw {v_X:.3g} (<= {SCALE_TOL_LM} required)")
+    if not (float(local.cost) < cost0 and float(sh.cost) < cost0 and float(vlocal.cost) < vcost0
+            and float(vsh.cost) < vcost0):
+        fail("scale: a solve did not lower the cost")
+
+    if torch.cuda.device_count() > 1:
+        ranks = launch.run_ranks(launch.solve_sharded, n, jobs[:1], device=dev.type, backend="nccl")
+        r0 = ranks[0][0]["result"]
+        same = all(np.array_equal(getattr(r0, k), getattr(r[0]["result"], k)) for r in ranks for k in ("R", "t", "Xw"))
+        d_t = float(np.abs(r0.t[kf] - local.t[kf]).max())
+        log(f"scale: NCCL, one card per rank: {ranks[0][0]['ms']:.1f} ms, ranks bitwise equal {same}, t vs local {d_t:.3g} m")
+        if not same or not d_t <= SCALE_TOL_POSE:
+            fail("scale: the NCCL run's ranks differ, or it is off the local solve")
+    else:
+        log("scale: NCCL with one card per rank skipped: this machine has one card")
 
 
 def phase_profile_slam(dev, scene, frames, orb_params):
@@ -2286,10 +2762,15 @@ def main(argv=None) -> int:
     async_launches = phase_async(dev, scene, ts, frames, orb_params, slam, gate_ate=args.frames == FRAMES)
     if args.frames >= LADDER_FRAMES:
         phase_ladder(dev, scene, frames, orb_params)
-    loop_launches = phase_loop(dev, orb_params, gate_ate=args.frames == FRAMES)
-    stereo_launches, rgbd_launches, stereo_describe_err = phase_stereo(dev, orb_params, gate_ate=args.frames == FRAMES)
+    loop_launches, loop_trk = phase_loop(dev, orb_params, gate_ate=args.frames == FRAMES)
+    stereo_launches, rgbd_launches, stereo_describe_err, stereo_ate = phase_stereo(
+        dev, orb_params, gate_ate=args.frames == FRAMES)
     merge_launches, merge_describe_err = phase_merge(dev, orb_params, gate_ate=args.frames == FRAMES)
-    inertial_launches, inertial_describe_err = phase_inertial(dev, orb_params, gate_ate=args.frames == FRAMES)
+    inertial_launches, inertial_describe_err, vi_ate, vi_trk = phase_inertial(
+        dev, orb_params, gate_ate=args.frames == FRAMES)
+    entry_launches = phase_entry(dev)
+    shell_launches = phase_shell(dev, orb_params, stereo_ate, vi_ate, gate_ate=args.frames == FRAMES)
+    phase_scale(dev, loop_trk, vi_trk)
     if args.compare_routes:
         phase_compare_routes(dev, make, frames)
     if args.profile:
@@ -2307,14 +2788,16 @@ def main(argv=None) -> int:
             # asynchronous one, the loop phase's runs (A twice, B, C) and
             # the merge phase's (A twice, B, C) and the inertial phase's (A
             # twice, B); two a stereo pair and one an RGB-D frame in the
-            # stereo phase, two a pair in the inertial phase's C; each
-            # counted from 0.
+            # stereo phase, two a pair in the inertial phase's C; one a call
+            # of entry()'s fn; one a frame and two a pair through the
+            # drivers of the shell phase; each counted from 0.
             "launches": describe_launches + slam_launches + async_launches + loop_launches + stereo_launches
-            + rgbd_launches + merge_launches + inertial_launches,
+            + rgbd_launches + merge_launches + inertial_launches + entry_launches + shell_launches,
             "launches_localization": describe_launches, "launches_slam": slam_launches,
             "launches_async": async_launches, "launches_loop": loop_launches,
             "launches_stereo": stereo_launches, "launches_rgbd": rgbd_launches,
             "launches_merge": merge_launches, "launches_inertial": inertial_launches,
+            "launches_entry": entry_launches, "launches_shell": shell_launches,
             "max_abs_err": max(describe["max_abs_err"], stereo_describe_err, merge_describe_err, inertial_describe_err),
             "ms": describe["ms"], "plain_ms": describe["plain_ms"],
             "bound_ms": describe["bound_ms"], "bound_by": describe["bound_by"],

@@ -1,0 +1,41 @@
+"""Stereo EuRoC driver (reference Examples/Stereo/stereo_euroc.cc).
+Also serves TUM-VI, which ships the same ASL mav0/ layout
+(src/Common/TUMVI.cc).
+
+Usage: python -m orbslam3_cpp_fork_tpu_torch.examples.stereo_euroc EuRoC.yaml /data/euroc MH01
+"""
+
+from .common import base_parser, finish, pace, setup_logging, viewer_kwargs
+from ..datasets import euroc
+from ..runtime.system import System
+from ..runtime.tracker import Sensor
+
+
+def main(argv=None):
+    args = base_parser(__doc__).parse_args(argv)
+    setup_logging(args.log_level)
+    slam = System(args.settings, Sensor.STEREO, load_atlas=args.load_atlas,
+                  device=args.device, **viewer_kwargs(args))
+    if args.localization:
+        slam.activate_localization_mode()
+    for si, seq_name in enumerate(args.sequence):
+        if si:
+            slam.change_dataset()
+        seq = euroc.load_sequence(
+            args.dataset_root, seq_name, args.timestamps, stereo=True
+        )
+        wall = t_prev = None
+        n = len(seq.image_paths) if args.max_frames is None else args.max_frames
+        for i in range(n):
+            t = float(seq.timestamps[i])
+            left = euroc.load_gray(seq.image_paths[i])
+            right = euroc.load_gray(seq.image_paths_right[i])
+            if args.realtime:
+                wall = pace(t_prev, t, wall)
+            slam.track_stereo(left, right, t)
+            t_prev = t
+    finish(slam, args)
+
+
+if __name__ == "__main__":
+    main()

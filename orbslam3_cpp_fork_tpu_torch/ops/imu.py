@@ -26,6 +26,7 @@ import dataclasses
 
 import torch
 
+from ..device import get_device
 from ..utils import lie
 
 GRAVITY = 9.81
@@ -57,9 +58,10 @@ class ImuCalib:
     Tbc_t: torch.Tensor  # (3,)
 
     @staticmethod
-    def create(ng, na, wg, wa, freq, Tbc_R=None, Tbc_t=None, device="cpu") -> "ImuCalib":
+    def create(ng, na, wg, wa, freq, Tbc_R=None, Tbc_t=None, device="cuda") -> "ImuCalib":
+        """On the card unless `device` says "cpu" (`get_device`)."""
         sf = float(freq) ** 0.5
-        dev = torch.device(device)
+        dev = get_device(device)
         return ImuCalib(
             sigma_gyro=_f32(ng * sf, dev),
             sigma_acc=_f32(na * sf, dev),

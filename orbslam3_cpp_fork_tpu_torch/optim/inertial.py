@@ -554,10 +554,14 @@ def _vi_states(p: VIBAProblem):
 class _ViModel:
     """What `visual_inertial_ba` and `sparse_vi_ba` share: the reprojection
     rows over body poses, the inertial and bias-walk chain edges with their
-    Jacobian blocks, the bias prior and the robust cost."""
+    Jacobian blocks, the bias prior and the robust cost. `reduce` sums the
+    per-row reprojection cost (`torch.sum`; `sparse_vi_ba` passes its
+    fixed-order sum over the rows and the ranks); the chain and the prior are
+    replicated and stay local."""
 
-    def __init__(self, p: VIBAProblem):
+    def __init__(self, p: VIBAProblem, reduce=torch.sum):
         self.p = p
+        self.reduce = reduce
         dev, dt = p.Xw.device, p.Xw.dtype
         self.dt = dt
         self.obs_kf, self.obs_lm = p.obs_kf.long(), p.obs_lm.long()
@@ -633,7 +637,7 @@ class _ViModel:
         chi2 = self.chi2_of(r)
         active = inlier & self.p.obs_valid & (z > 0)
         rho = _huber_rho(chi2, self.d2)
-        return torch.sum(torch.where(active, rho, torch.zeros_like(rho))) + self.inertial_cost(states) \
+        return self.reduce(torch.where(active, rho, torch.zeros_like(rho))) + self.inertial_cost(states) \
             + self.prior_cost(states)
 
     def prior_rhs(self, states):

@@ -53,6 +53,16 @@ def stereo_reprojection(R, t, Xw, uvr, fx, fy, bf):
     (EdgeStereoSE3ProjectXYZ); uvr (N,3) centered observations.
     Returns r (N,3), J_pose (N,3,6), J_point (N,3,3), z (N,)."""
     pc = lie.se3_apply(R, t, Xw)
+    r, Jproj, z = project_stereo(pc, uvr, fx, fy, bf)
+    Jx = pose_jacobian_frame(pc)  # (N,3,6)
+    J_pose = Jproj @ Jx
+    J_point = Jproj @ R.expand(*pc.shape[:-1], 3, 3)
+    return r, J_pose, J_point, z
+
+
+def project_stereo(pc, uvr, fx, fy, bf):
+    """Camera points pc (N,3) -> the residual (u, v, u_right) against uvr,
+    d(u, v, u_right)/d(pc) (N,3,3) and the depth z; elementwise."""
     x, y, z = pc[..., 0], pc[..., 1], pc[..., 2]
     z_safe = torch.where(z < 1e-6, torch.full_like(z, 1e-6), z)
     iz = 1.0 / z_safe
@@ -70,11 +80,13 @@ def stereo_reprojection(R, t, Xw, uvr, fx, fy, bf):
         ],
         dim=-2,
     )  # (N,3,3)
+    return r, Jproj, z
+
+
+def pose_jacobian_frame(pc):
+    """d(pc)/d(left se3 increment) = [I, -hat(pc)] (N,3,6)."""
     eye = torch.eye(3, dtype=pc.dtype, device=pc.device).expand(*pc.shape[:-1], 3, 3)
-    Jx = torch.cat([eye, -lie.hat(pc)], dim=-1)  # (N,3,6)
-    J_pose = Jproj @ Jx
-    J_point = Jproj @ R.expand(*pc.shape[:-1], 3, 3)
-    return r, J_pose, J_point, z
+    return torch.cat([eye, -lie.hat(pc)], dim=-1)
 
 
 def stereo_reprojection_body(Rwb, twb, Xw, uvr, Rcb, tcb, fx, fy, bf):
@@ -87,23 +99,7 @@ def stereo_reprojection_body(Rwb, twb, Xw, uvr, Rcb, tcb, fx, fy, bf):
     the caller masks the third row of mono observations."""
     y = torch.einsum("...ji,...j->...i", Rwb, Xw - twb)  # body coordinates
     pc = torch.einsum("ij,...j->...i", Rcb, y) + tcb
-    x, yy, z = pc[..., 0], pc[..., 1], pc[..., 2]
-    z_safe = torch.where(z < 1e-6, torch.full_like(z, 1e-6), z)
-    iz = 1.0 / z_safe
-    iz2 = iz * iz
-    u = fx * x * iz
-    v = fy * yy * iz
-    ur = u - bf * iz
-    r = torch.stack([u, v, ur], dim=-1) - uvr
-    zero = torch.zeros_like(x)
-    Jproj = torch.stack(
-        [
-            torch.stack([fx * iz, zero, -fx * x * iz2], dim=-1),
-            torch.stack([zero, fy * iz, -fy * yy * iz2], dim=-1),
-            torch.stack([fx * iz, zero, (-fx * x + bf) * iz2], dim=-1),
-        ],
-        dim=-2,
-    )  # (N,3,3)
+    r, Jproj, z = project_stereo(pc, uvr, fx, fy, bf)
     # dpc/dphi = Rcb hat(y); dpc/dp = -Rcb; dpc/dXw = Rcb Rwb^T.
     dpc_dphi = torch.einsum("ij,...jk->...ik", Rcb, lie.hat(y))
     dpc_dp = (-Rcb).expand(*pc.shape[:-1], 3, 3)

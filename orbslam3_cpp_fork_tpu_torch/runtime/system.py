@@ -12,8 +12,12 @@ inertial sensor), Atlas checkpoints (`save_atlas`, `load_atlas=`, and the
 settings' System.LoadAtlasFromFile / SaveAtlasToFile), sequence changes and
 resets, and `shutdown`, which flushes and stops the mapping and loop-closing
 workers and joins a global BA in flight. Loop closing is on by default, as
-in the reference. The viewers raise `NotImplementedError` naming their
-ROADMAP item.
+in the reference. The viewers are the reference's: `use_viewer` writes frame
+snapshots and the map's PLY and HTML exports under viewer_out/
+(utils/viewer.py), `live_viewer` serves the frame and the map over HTTP on
+localhost (utils/live_viewer.py). Both read host copies the tracker already
+holds: a frame whose features were never fetched from the device is drawn
+without its keypoints rather than fetched.
 """
 
 from __future__ import annotations
@@ -36,10 +40,6 @@ from .tracker import ImuSettings, Sensor, Tracker, TrackerConfig, TrackState
 log = logging.getLogger("orbslam3_torch.system")
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
-
-
 def _K(c: Camera) -> np.ndarray:
     return np.array([[c.fx, 0.0, c.cx], [0.0, c.fy, c.cy], [0.0, 0.0, 1.0]])
 
@@ -60,13 +60,12 @@ class System:
         load_atlas: str | None = None,
         async_mapping: bool = True,
         live_viewer: bool = False,
+        live_viewer_port: int = 0,
         enable_loop_closing: bool = True,
         device: str | torch.device = "cuda",
     ):
         if isinstance(settings, str):
             settings = load_settings(settings)
-        if use_viewer or live_viewer:
-            raise _not_ported("the viewers", "A15")
         self.settings = settings
         self.sensor = sensor
         s = settings
@@ -156,6 +155,22 @@ class System:
             **fisheye_kw,
         )
         self.tracker = Tracker(cfg, device)
+        # Rendering is offline: snapshots and map exports under viewer_out/,
+        # the headless counterpart of the Pangolin viewer thread
+        # (src/System.cc:259).
+        self.use_viewer = use_viewer
+        self.viewer = None
+        if use_viewer:
+            from ..utils.viewer import Viewer
+
+            self.viewer = Viewer("viewer_out", frame_every=30)
+        # Live viewer: the same over HTTP on localhost (utils/live_viewer.py).
+        self.live_viewer = None
+        if live_viewer:
+            from ..utils.live_viewer import LiveViewer
+
+            self.live_viewer = LiveViewer(port=live_viewer_port)
+            self.live_viewer.state_provider = self._live_state
         self.timers = timers_mod.StageTimers()
         self._shutdown = False
         self._last_big_change = 0
@@ -200,8 +215,10 @@ class System:
         since the previous frame for IMU_MONOCULAR."""
         self._check_sensor(Sensor.MONOCULAR)
         t0 = time.perf_counter()
-        T = self.tracker.track(self._preprocess(img), timestamp, imu=imu)
+        img = self._preprocess(img)
+        T = self.tracker.track(img, timestamp, imu=imu)
         self.timers.add("track_total", time.perf_counter() - t0)
+        self._viewer_update(img)
         return T
 
     def _check_sensor(self, sensor: Sensor) -> None:
@@ -236,6 +253,7 @@ class System:
             img_l, img_r = self._remap_pair(img_l, img_r)
         T = self.tracker.track_stereo(img_l, img_r, timestamp, imu=imu)
         self.timers.add("track_total", time.perf_counter() - t0)
+        self._viewer_update(img_l)
         return T
 
     def track_rgbd(self, img: np.ndarray, depth: np.ndarray, timestamp: float,
@@ -246,9 +264,45 @@ class System:
         if self._resize is not None and depth.shape != self._resize:
             dev = self.tracker.device
             depth = resize_bilinear(torch.from_numpy(np.ascontiguousarray(depth)).to(dev), self._resize).cpu().numpy()
-        T = self.tracker.track_rgbd(self._preprocess(img), depth, timestamp, imu=imu)
+        img = self._preprocess(img)
+        T = self.tracker.track_rgbd(img, depth, timestamp, imu=imu)
         self.timers.add("track_total", time.perf_counter() - t0)
+        self._viewer_update(img)
         return T
+
+    def _viewer_update(self, img: np.ndarray):
+        """Hand the frame to the viewers: the image, the current frame's
+        keypoints where their host copies exist (none are fetched for the
+        viewer) and its bindings."""
+        if self.viewer is None and self.live_viewer is None:
+            return
+        f = self.tracker.last
+        if f is None:
+            return
+        xy, valid = f.host_keypoints()
+        tracked = f.lm_idx[: len(valid)] >= 0
+        state = self.tracker.state.name
+        if self.viewer is not None:
+            self.viewer.update(img, xy, valid, tracked, state=state)
+        if self.live_viewer is not None:
+            self.live_viewer.push_frame(img, xy, valid, tracked, state, f.frame_id)
+
+    def _live_state(self) -> dict:
+        """Map snapshot for the live viewer (called on its HTTP thread: a
+        short hold of the map lock, numpy copies only)."""
+        tr = self.tracker
+        with tr.map_lock:
+            m = tr.map
+            kf = np.nonzero(m.kf_valid)[0]
+            kf = kf[np.argsort(m.kf_timestamp[kf])]
+            centers = -np.einsum("kji,kj->ki", m.kf_R[kf], m.kf_t[kf])
+            pts = m.lm_pos[m.lm_valid].copy()
+            n_loops = tr.loop_closer.n_loops_closed if tr.loop_closer else 0
+        return {
+            "points": pts, "traj": centers,
+            "n_keyframes": len(kf), "n_landmarks": len(pts),
+            "n_loops": int(n_loops),
+        }
 
     # ------------------------------------------------------------------
     # State (GetTrackingState, MapChanged, GetTracked*)
@@ -446,9 +500,20 @@ class System:
         """System::Shutdown: retire the frames in flight, flush and stop the
         mapping worker, then the loop worker, then join the global BA (a
         failure of any of their threads is re-raised here, after every thread
-        has been stopped), write the Atlas if asked (`save_atlas_path` or the
+        has been stopped), stop the live viewer, write the offline viewer's
+        map exports, write the Atlas if asked (`save_atlas_path` or the
         settings' System.SaveAtlasToFile), log and return the timing stats."""
-        self._stop_workers()
+        try:
+            self._stop_workers()
+        finally:
+            if self.live_viewer is not None:
+                self.live_viewer.stop()
+                self.live_viewer = None
+        if self.viewer is not None:
+            m = self.tracker.map
+            kf = m.kf_valid  # camera centres c = -R^T t
+            centers = -np.einsum("kji,kj->ki", m.kf_R[kf], m.kf_t[kf])
+            self.viewer.finalize(m.lm_pos, centers, point_mask=m.lm_valid)
         if save_atlas_path or self.settings.save_atlas:
             self.save_atlas(save_atlas_path or self.settings.save_atlas)
         tr = self.tracker

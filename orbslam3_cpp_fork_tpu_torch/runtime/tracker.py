@@ -57,6 +57,13 @@ preintegration at its insertion (as in the reference).
 Trajectory bookkeeping stores (ref_kf, T_frame<-refkf) like
 Tracking::mlRelativeFramePoses, so BA corrections reach the exported
 trajectory.
+
+Scale-out: when a `torch.distributed` default group of more than one rank
+is initialized, the foreground whole-map BAs (`_global_ba` and the sparse
+FullInertialBA) shard their observations over its ranks
+(parallel/dist_ba.py); background solves stay local. The contract is the
+reference's under `shard_map` and multi-process JAX: every rank runs the
+same program on the same input, and there is no server rank.
 """
 
 from __future__ import annotations
@@ -70,6 +77,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..device import GraphedCall, block_nbytes, fetch_block, fetch_block_async, get_device
 from ..models.atlas import Atlas
@@ -636,6 +644,13 @@ class FrameData:
             self._materialize()
         return getattr(self, name)
 
+    def host_keypoints(self) -> tuple[np.ndarray, np.ndarray]:
+        """(xy, valid) where the host copies exist, else two empty arrays:
+        nothing is fetched from the device (the viewers' read)."""
+        if self._xy is None or self._valid is None:
+            return np.zeros((0, 2), np.float32), np.zeros(0, bool)
+        return self._xy, self._valid
+
     @property
     def xy(self) -> np.ndarray:
         return self._lazy("_xy")
@@ -799,6 +814,9 @@ class Tracker:
         self.n_pipelined_frames = 0
         # Frames the fused path declined and handed to the split-phase path.
         self.n_fused_declined = 0
+        # Whole-map BAs solved with their observations sharded over the
+        # default process group (parallel/dist_ba.py).
+        self.n_sharded_solves = 0
         # Frames without a pose after the loss ladder (RECENTLY_LOST without
         # re-acquisition, LOST without relocalization).
         self.n_lost_frames = 0
@@ -3595,14 +3613,21 @@ class Tracker:
         )
         return prob, kfs_arr, np.asarray(lms), m, m.kf_gen[kfs_arr].copy(), m.big_change_idx
 
-    def _solve_vi(self, built, iters: int, gate_at: int, sparse: bool = False):
+    def _solve_vi(self, built, iters: int, gate_at: int, sparse: bool = False, background: bool = False):
         """Solve a built problem on its device; host (Rcw, tcw, vel, bg, ba)
-        of its keyframes and the positions of its landmarks."""
+        of its keyframes and the positions of its landmarks. A foreground
+        sparse solve shards as `_gba_solve` does; a background one never."""
         prob, kfs_arr, lms = built[:3]
         if sparse:
             from ..optim.sparse_ba import sparse_vi_ba
+            from ..parallel.dist_ba import default_group, sparse_vi_ba_sharded
 
-            res = sparse_vi_ba(prob, iters=iters, gate_at=gate_at)
+            group = None if background else default_group()
+            if group is not None and prob.obs_kf.shape[0] % dist.get_world_size(group) == 0:
+                res = sparse_vi_ba_sharded(group, prob, iters=iters, gate_at=gate_at)
+                self.n_sharded_solves += 1
+            else:
+                res = sparse_vi_ba(prob, iters=iters, gate_at=gate_at)
         else:
             from ..optim.inertial import visual_inertial_ba
 
@@ -3683,7 +3708,7 @@ class Tracker:
         def run():
             try:
                 with self.timers.span("global_ba"):
-                    Rcw, tcw, vel, bg, ba, Xw = self._solve_vi(built, iters=7, gate_at=4, sparse=sparse)
+                    Rcw, tcw, vel, bg, ba, Xw = self._solve_vi(built, iters=7, gate_at=4, sparse=sparse, background=True)
                     # Full-size update arrays: unsolved rows keep their snapshot.
                     R_new, t_new, X_new = snap["kf_R"].copy(), snap["kf_t"].copy(), snap["Xw"].copy()
                     R_new[kfs_arr], t_new[kfs_arr] = Rcw, tcw
@@ -3751,15 +3776,33 @@ class Tracker:
                 o_st=m.kf_ur[ks, fs] >= 0,
             )
 
-    def _gba_solve(self, snap: dict, iters: int | None = None):
-        """Solve the snapshotted problem on the tracker's device (the
-        observation count padded to a multiple of gba_obs_bucket); returns
-        host (R, t, Xw) of every slot."""
-        from ..optim.local_ba import BAProblem
+    def _gba_solve(self, snap: dict, iters: int | None = None, background: bool = False):
+        """Solve the snapshotted problem on the tracker's device; returns host
+        (R, t, Xw) of every slot. A foreground solve shards its observations
+        over the default process group when there is one and the padded
+        count divides by its size (parallel/dist_ba.py: every rank runs this
+        same call on the same map); a background solve never shards."""
         from ..optim.sparse_ba import sparse_ba
+        from ..parallel.dist_ba import default_group, sparse_ba_sharded
+
+        iters = self.cfg.gba_iters if iters is None else iters
+        prob = self._gba_problem(snap)
+        group = None if background else default_group()
+        if group is not None and prob.obs_kf.shape[0] % dist.get_world_size(group) == 0:
+            res = sparse_ba_sharded(group, prob, iters=iters, gate_at=max(2, iters // 2))
+            self.n_sharded_solves += 1
+        else:
+            res = sparse_ba(prob, iters=iters, gate_at=max(2, iters // 2))
+        R_new, t_new, X_new, cost = fetch_block((res.R, res.t, res.Xw, res.cost))
+        log.info("global BA solved: %d obs, cost %.1f", snap["n_obs"], float(cost))
+        return R_new, t_new, X_new
+
+    def _gba_problem(self, snap: dict):
+        """The snapshotted whole-map BA problem on the tracker's device, the
+        observation count padded to a multiple of gba_obs_bucket."""
+        from ..optim.local_ba import BAProblem
 
         cfg = self.cfg
-        iters = cfg.gba_iters if iters is None else iters
         n_obs = snap["n_obs"]
         pad_o = min(-(-n_obs // cfg.gba_obs_bucket) * cfg.gba_obs_bucket, cfg.gba_obs_cap) - n_obs
 
@@ -3778,10 +3821,7 @@ class Tracker:
             obs_valid=put(np.concatenate([np.ones(n_obs, bool), np.zeros(pad_o, bool)])),
             fx=self.fx, fy=self.fy, bf=float(cfg.bf),
         )
-        res = sparse_ba(prob, iters=iters, gate_at=max(2, iters // 2))
-        R_new, t_new, X_new, cost = fetch_block((res.R, res.t, res.Xw, res.cost))
-        log.info("global BA solved: %d obs, cost %.1f", n_obs, float(cost))
-        return R_new, t_new, X_new
+        return prob
 
     def _gba_apply(self, snap: dict, R_new, t_new, X_new):
         """Write the result back under the map lock, propagating corrections
@@ -3865,7 +3905,7 @@ class Tracker:
         def run():
             try:
                 with self.timers.span("global_ba"):
-                    self._gba_apply(snap, *self._gba_solve(snap))
+                    self._gba_apply(snap, *self._gba_solve(snap, background=True))
             except BaseException as e:  # noqa: BLE001 - re-raised at the next flush
                 log.exception("background global BA failed")
                 self._gba_error = e

@@ -645,3 +645,50 @@ def test_inertial_system_tracks_on_the_card(dev, sensor):
         assert system.get_tracking_state() == TrackState.OK and system.tracker.inertial
     finally:
         system.shutdown()
+
+
+def test_sharded_global_ba_over_two_gloo_ranks_on_the_card(dev):
+    """The dry run's whole-map BA sharded over two gloo ranks, both on this
+    card: the ranks and two runs bitwise equal, within tests/test_dist_ba.py's
+    bars of the local solve on the card (t and R 2e-3, Xw 5e-3); and the
+    dry run itself takes the tracker's sharded path."""
+    from orbslam3_cpp_fork_tpu_torch.entry import dryrun_map, dryrun_multichip
+    from orbslam3_cpp_fork_tpu_torch.optim.sparse_ba import sparse_ba
+    from orbslam3_cpp_fork_tpu_torch.parallel import launch
+
+    out = dryrun_multichip(2)
+    assert [o["sharded_solves"] for o in out] == [1, 1]
+    tr, _, _ = dryrun_map(dev, 2)
+    prob = tr._gba_problem(tr._gba_gather())
+    kw = dict(iters=10, gate_at=5)
+    local = launch.to_host(sparse_ba(prob, **kw))
+    ranks = launch.run_ranks(launch.solve_sharded, 2, [(launch.to_host(prob), kw)] * 2, backend="gloo")
+    first = ranks[0][0]["result"]
+    for r in ranks:
+        for job in r:
+            for k in ("R", "t", "Xw", "cost", "obs_inlier"):
+                assert np.array_equal(getattr(job["result"], k), getattr(first, k)), k
+    kf = tr.map.kf_valid
+    np.testing.assert_allclose(first.t[kf], local.t[kf], atol=2e-3)
+    chord = np.linalg.norm(first.R[kf].astype(np.float64) - local.R[kf], axis=(-2, -1))
+    assert (2 * np.arcsin(np.clip(chord / (2 * np.sqrt(2)), 0, 1))).max() < 2e-3
+    np.testing.assert_allclose(first.Xw, local.Xw, atol=5e-3)
+
+
+def test_entry_on_the_card(dev):
+    """entry(): its inputs on the card, one describe launch a call counted on
+    the card, the result finite and within 1e-3 of the same fn on the CPU."""
+    from orbslam3_cpp_fork_tpu_torch.entry import entry
+
+    fn, args = entry()
+    assert all(a.device == dev for a in args)
+    counter = patches.describe_counter(dev)
+    torch.cuda.synchronize()
+    counter.zero_()
+    R2, t2, n_in = fn(*args)
+    torch.cuda.synchronize()
+    assert int(counter) == 1
+    fn_c, args_c = entry("cpu")
+    Rc, tc, nc = fn_c(*args_c)
+    assert int(n_in) == int(nc) and torch.isfinite(R2).all() and torch.isfinite(t2).all()
+    assert float((R2.cpu() - Rc).abs().max()) <= 1e-3 and float((t2.cpu() - tc).abs().max()) <= 1e-3

@@ -287,7 +287,7 @@ def test_frame_helpers_residuals_and_one_step_match():
                                 1.7e-4, 2e-3, 1.9e-5, 3e-3, 200.0))
     step_t = timu.integrate(timu.Preintegrated.identity(*_t(bg, ba)), torch.tensor([0.1, 0.2, 9.8]),
                             torch.tensor([0.3, -0.1, 0.2]), torch.tensor(0.005),
-                            timu.ImuCalib.create(1.7e-4, 2e-3, 1.9e-5, 3e-3, 200.0))
+                            timu.ImuCalib.create(1.7e-4, 2e-3, 1.9e-5, 3e-3, 200.0, device="cpu"))
     pairs.append(tuple(zip(*[(getattr(step_r, f), getattr(step_t, f)) for f in convert.PREINT_FIELDS])))
     for refs, gots in pairs:
         for r, g in zip(refs, gots):

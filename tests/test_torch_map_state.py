@@ -132,7 +132,7 @@ def test_inertial_hooks_are_refused():
 
     noise = (1.7e-4, 2e-3, 1.9e-5, 3e-3, 200.0)
     maps = []
-    for mod, calib in ((jms, jimu.ImuCalib.create(*noise)), (tms, timu.ImuCalib.create(*noise))):
+    for mod, calib in ((jms, jimu.ImuCalib.create(*noise)), (tms, timu.ImuCalib.create(*noise, device="cpu"))):
         rng = np.random.default_rng(5)
         m = mod.MapState(mod.MapConfig(max_keyframes=8, max_landmarks=16, n_features=8, imu_cap=64))
         m._imu_calib = calib

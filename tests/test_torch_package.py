@@ -30,7 +30,9 @@ def test_port_imports_no_jax():
         "for m in mods: importlib.import_module(m)\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith(('jax.', 'jaxlib', 'orbslam3_cpp_fork_tpu.')) or k == 'orbslam3_cpp_fork_tpu')\n"
         "assert len(mods) >= 29, mods\n"
-        "for m in ('runtime.mapping_worker', 'runtime.system', 'utils.trajectory', 'utils.settings'):\n"
+        "for m in ('runtime.mapping_worker', 'runtime.system', 'utils.trajectory', 'utils.settings', 'entry',\n"
+        "          'parallel.dist_ba', 'parallel.launch', 'utils.viewer', 'utils.live_viewer', 'examples.common',\n"
+        "          'examples.mono_euroc', 'examples.rgbd_inertial', 'examples.evaluate_ate'):\n"
         "    assert p.__name__ + '.' + m in mods, m\n"
         "assert 'yaml' not in sys.modules, 'yaml is imported only inside the YAML reader'\n"
         "assert not bad, bad\n"
@@ -51,7 +53,9 @@ def test_no_source_line_imports_jax():
     names = {f.relative_to(REPO).as_posix() for f in files}
     for must in ("ops/geometry.py", "ops/ransac.py", "optim/local_ba.py", "models/map_state.py",
                  "native/__init__.py", "runtime/tracker.py", "utils/timers.py", "runtime/mapping_worker.py",
-                 "runtime/system.py", "utils/trajectory.py", "utils/settings.py"):
+                 "runtime/system.py", "utils/trajectory.py", "utils/settings.py", "entry.py", "parallel/dist_ba.py",
+                 "parallel/launch.py", "utils/viewer.py", "utils/live_viewer.py", "examples/common.py",
+                 "examples/stereo_inertial_tumvi.py"):
         assert f"orbslam3_cpp_fork_tpu_torch/{must}" in names, must
     bad = [f"{f}:{i + 1}" for f in files for i, line in enumerate(f.read_text().splitlines()) if pat.match(line)]
     assert not bad, bad

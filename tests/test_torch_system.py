@@ -10,6 +10,7 @@ name.
 """
 
 import dataclasses
+import os
 import sys
 
 import numpy as np
@@ -205,13 +206,20 @@ def test_system_builds_the_tracker_configuration(tmp_path):
     [
         # The two A13 cases (IMU sensors) construct now: they are cases of
         # tests/test_torch_tracker.py::test_unsupported_configs_are_refused.
+        # The viewers (A15) are ported: they construct and shut down, and
+        # nothing is refused in their name (tests/test_torch_shell.py).
         pytest.param(dict(use_viewer=True), "A15", id="kw2-A15"),
         pytest.param(dict(live_viewer=True), "A15", id="kw3-A15"),
     ],
 )
-def test_system_refuses_what_is_not_ported(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        System(_settings(320, 240), **{"device": "cpu", **kw})
+def test_system_refuses_what_is_not_ported(kw, item, tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)  # the offline viewer writes viewer_out/ here
+    system = System(_settings(320, 240), **{"device": "cpu", "async_mapping": False, **kw})
+    assert (system.viewer is not None) == kw.get("use_viewer", False)
+    assert (system.live_viewer is not None) == kw.get("live_viewer", False)
+    system.shutdown()
+    assert system.live_viewer is None
+    assert os.path.exists("viewer_out/map.ply") == kw.get("use_viewer", False)
 
 
 def test_system_loads_an_atlas(tmp_path):

@@ -37,6 +37,18 @@ N_FRAMES = 40
 MAP_CFG = dict(max_keyframes=32, max_landmarks=4096)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for the whole file. Its small ops gain nothing
+    from a team of threads, and beside the other test workers a team of 8
+    spinning threads a process made the cold start's fixture ~13x slower
+    than alone (PERF.md, Findings PR 9)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def sequence():
     scene = synthetic.make_scene(seed=3)

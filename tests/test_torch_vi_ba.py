@@ -92,9 +92,17 @@ def test_sparse_vi_ba_matches_dense():
 
 
 def test_sharded_vi_ba_is_refused():
+    """The sharded solve is ported (tests/test_torch_dist_vi_ba.py); what it
+    still refuses, as the reference does, is an observation count that the
+    world size does not divide (here 2 ranks and an odd count)."""
+    from orbslam3_cpp_fork_tpu_torch.parallel import dist_ba, launch
+
     tp = convert.vi_problem_from_numpy(_make_vi_problem()[0], "cpu")
-    with pytest.raises(NotImplementedError, match="A14"):
-        tsparse(tp, axis_name="obs")
+    O = tp.obs_kf.shape[0]
+    if O % 2 == 0:
+        tp = dataclasses.replace(tp, **{k: getattr(tp, k)[:-1] for k in dist_ba.OBS_FIELDS})
+    with pytest.raises(ValueError, match="not divisible by world size 2"):
+        launch.run_ranks(launch.solve_sharded, 2, [(launch.to_host(tp), dict(iters=2, gate_at=1))], device="cpu")
 
 
 def test_vi_ba_is_deterministic():
