@@ -188,6 +188,43 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                ms and all-reduces a solve printed. With more than one card,
                NCCL with a card per rank too; with one, a line says it was
                skipped.
+ 15. drivers - (in a child process started after the build, beside phases
+               3-14: the paths are host-bound and the host has cores to
+               spare) first the fused describe kernel against its plain
+               version on a 1241x376 KITTI pyramid with 2,000 features (two
+               waves of blocks) and a 512x512 fisheye pyramid, and
+               orb.compute_descriptors (one patch-gather launch) on the card
+               against the CPU, bit for bit. Then the ten drivers the shell
+               phase does not run, in-process in the default mode, each on a
+               tree written in its dataset's own layout at the published
+               width of its family's ORB-SLAM3 settings, cut in depth only:
+               mono_kitti and stereo_kitti (sequences/00, 1241x376, 2,000
+               features, 30 frames / pairs, bf 386.1448), mono_tum and
+               rgbd_tum (rgb.txt / depth.txt, 16-bit depth, 640x480 with
+               TUM1's intrinsics and distortion, 30 frames), rgbd_inertial
+               (the TUM layout plus imu.csv, the inertial phase's scene and
+               rows, 45 frames), mono_tumvi, stereo_tumvi,
+               mono_inertial_tumvi and stereo_inertial_tumvi
+               (dataset-room1_512_16/mav0, 512x512 KB8 frames warped from
+               wide pinhole renders, TUM-VI's two cameras and extrinsics, 30
+               frames / pairs, 45 for the inertial ones) and
+               stereo_inertial_euroc (the inertial phase's 640x480 rig, 40
+               pairs). Gates: the trajectory file in time order with > 80%
+               of the frames, one describe launch a frame and two a pair, no
+               thread error, the ATE of the poses tracked while OK
+               (scale-aligned for mono, unscaled otherwise) within max(JAX
+               driver, port driver on the CPU, same tree) + 10 mm, |scale -
+               1| < 0.05 for stereo and RGB-D, the IMU initialized and
+               |scale - 1| < 0.2 for the inertial drivers;
+ 16. long    - (the same child process) tests/test_long_sequence.py's 560
+               noisy frames at 640x480 (800 features, two laps of a 2.5 m
+               circle), synchronous with loop closing: state OK and > 88%
+               tracked, a loop closed, < 0.45 keyframes a frame alive and
+               landmarks under the cap, > 85% exported and a scale-aligned
+               ATE < 0.12 m on the true camera centres (ROADMAP R20); it
+               prints keyframes and landmarks against their caps, loops,
+               landmarks removed, ms a frame (median, p99) and the describe
+               launches (= frames).
 `--profile N` adds a torch.profiler pass over N frames (kernel launches and
 device time per frame, host time per stage) and over the SLAM phase's
 tracked frames and mapping steps, `--compare-routes` a timing of the tracker
@@ -374,10 +411,69 @@ SHELL_STATE_AT = 30  # the live viewer's state is fetched once, at or after this
 # driver (pytest -m slow -s tests/test_torch_drivers.py -k full_width).
 SHELL_JAX_ATE_M = 0.013079752449215278
 SHELL_PORT_ATE_M = 0.016065074099849305
+# Drivers phase: the ten drivers the shell phase does not run, each on a
+# tree written in its dataset's own layout at the published width of its
+# family's ORB-SLAM3 settings (Examples/<dir>/<file>.yaml, named below),
+# rendered from make_ring_scene views and cut in depth only.
+KITTI_SIZE = (1241, 376)  # KITTI00-02.yaml
+KITTI_K = (718.856, 718.856, 607.1928, 185.2157)
+KITTI_BF = 386.1448
+KITTI_TH_DEPTH = 35.0
+KITTI_FEATURES = 2000
+KITTI_FPS = 10.0
+TUM_SIZE = (640, 480)  # TUM1.yaml
+TUM_K = (517.306408, 516.469215, 318.643040, 255.313989)
+TUM_DIST = (0.262383, -0.953104, -0.005358, 0.002628, 1.163314)
+TUM_BF = 40.0
+TUM_TH_DEPTH = 40.0
+TUM_FEATURES = 1000
+TUM_FPS = 30.0
+TUM_DEPTH_FACTOR = 5000.0  # the 16-bit PNGs; datasets/tum.py reads meters (ROADMAP R18)
+TUMVI_SIZE = 512  # tumvi.default_cameras(), the YAML schema of tests/test_fisheye_stereo.py
+TUMVI_FEATURES = {"mono_tumvi": 1500, "mono_inertial_tumvi": 1500, "stereo_tumvi": 1000,
+                  "stereo_inertial_tumvi": 1000}  # Monocular[-Inertial]/TUM-VI.yaml, Stereo[-Inertial]/TUM-VI.yaml
+TUMVI_FPS = 20.0
+FISHEYE_THETA_MAX = 75.0  # degrees off axis covered by the pinhole render warped through KB8
+FISHEYE_BACKGROUND = 35.0  # render_frame's background level, outside that cone
+DRIVER_NAMES = ("mono_kitti", "stereo_kitti", "mono_tum", "rgbd_tum", "rgbd_inertial", "mono_tumvi", "stereo_tumvi",
+                "mono_inertial_tumvi", "stereo_inertial_tumvi", "stereo_inertial_euroc")
+DRIVER_FRAMES = 30
+DRIVER_VI_FRAMES = 45
+DRIVER_SI_EUROC_PAIRS = 40
+DRIVER_SCALE_TOL = 0.05  # stereo and RGB-D: metric
+DRIVER_VI_SCALE_TOL = 0.2  # inertial: the shell phase's part C rule
+# ATE (m; scale-aligned for the mono drivers, unscaled otherwise) of the
+# reference's driver and the port's on the same tree, both in the default
+# mode on a CPU (pytest -m slow -s tests/test_torch_drivers.py -k
+# full_width_driver); each driver's bound is the larger + TOL_LOOP_ATE_M.
+DRIVER_ATE_M = {
+    "mono_kitti": (0.009814794613471033, 0.009291113685527522),
+    "stereo_kitti": (0.004788281932521995, 0.004443431890200967),
+    "mono_tum": (0.018542492508828765, 0.011589099733977114),
+    "rgbd_tum": (0.004176940181367123, 0.004448608480844039),
+    "rgbd_inertial": (0.016183681157379053, 0.017451301980072192),
+    "mono_tumvi": (0.00437407327305074, 0.0046102076885494855),
+    "stereo_tumvi": (0.005268907773982416, 0.0050404673386093),
+    "mono_inertial_tumvi": (0.06986172962174882, 0.06087465666650617),
+    "stereo_inertial_tumvi": (0.016036685637999155, 0.024414271461683297),
+    "stereo_inertial_euroc": (0.025156744558025704, 0.025306137598722106),
+}  # (reference, port)
+# Long phase: tests/test_long_sequence.py's 560 noisy frames at 640x480
+# (800 features, two laps of a 2.5 m circle, synchronous, loop closing on).
+LONG_FRAMES = 560
+LONG_TURNS = 4.3  # in units of pi
+LONG_FEATURES = 800
+LONG_MIN_TRACKED = 0.88
+LONG_MIN_EXPORTED = 0.85
+LONG_MAX_KF_FRAC = 0.45
+LONG_MAX_ATE_M = 0.12
 # Scale phase: tests/test_dist_ba.py's bars, sharded against local.
 SCALE_TOL_POSE = 2e-3  # t (m) and R (rad)
 SCALE_TOL_LM = 5e-3  # Xw (m); VI twb too
 SCALE_RANKS = 2
+# The drivers and long phases' process must have ended by then (s after the
+# smoke's start), inside the contract's 1,200 s.
+PARALLEL_DEADLINE_S = 1100.0
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOPS = 67e12  # H100 SXM data sheet, float32 outside the tensor cores
 
@@ -431,7 +527,7 @@ def render_ring(n_frames: int):
 
     scene = synthetic.make_ring_scene(seed=7, n_points=1200, size_range=(9, 15), width=752, height=480)
     Rs, ts = synthetic.circle_trajectory(n_frames=300, radius=2.5, total_angle=2.3 * np.pi)
-    frames = [synthetic.to_u8(synthetic.render_frame(scene, Rs[i], ts[i])) for i in range(n_frames)]
+    frames = [synthetic.to_u8(f) for f in synthetic.render_sequence(scene, Rs[:n_frames], ts[:n_frames])]
     return scene, Rs[:n_frames], ts[:n_frames], frames
 
 
@@ -1064,7 +1160,7 @@ def render_loop():
 
     scene = synthetic.make_ring_scene(seed=11, n_points=900, size_range=(9, 15), width=752, height=480)
     Rs, ts = synthetic.circle_trajectory(n_frames=LOOP_FRAMES, radius=2.5, total_angle=2.3 * np.pi)
-    frames = [synthetic.to_u8(synthetic.render_frame(scene, Rs[i], ts[i])) for i in range(LOOP_FRAMES)]
+    frames = [synthetic.to_u8(f) for f in synthetic.render_sequence(scene, Rs, ts)]
     return scene, Rs, ts, frames
 
 
@@ -1874,16 +1970,17 @@ def bob_imu_rows(t0, t1):
     return np.asarray(rows, np.float32)
 
 
-def render_inertial(width, height, stereo=False, n_frames=None):
-    """The scene of tests/test_vi_tracking_e2e.py (make_ring_scene(seed=5)) at
-    width x height over `n_frames` frames at VI_FPS: stamps, ground-truth
-    poses, uint8 frames (or (left, right) pairs of the 0.2 m rig) and each
-    frame's IMU rows (None for the first)."""
+def render_inertial(width, height, stereo=False, n_frames=None, ring=None, render=True):
+    """The scene of tests/test_vi_tracking_e2e.py (make_ring_scene(seed=5),
+    its ring resized by `ring`) at width x height over `n_frames` frames at
+    VI_FPS: stamps, ground-truth poses, uint8 frames (or (left, right) pairs
+    of the 0.2 m rig; None unless `render`) and each frame's IMU rows (None
+    for the first)."""
     import numpy as np
 
     from orbslam3_cpp_fork_tpu_torch.datasets import synthetic
 
-    scene = synthetic.make_ring_scene(seed=5, width=width, height=height)
+    scene = synthetic.make_ring_scene(seed=5, width=width, height=height, **(ring or {}))
     n_frames = VI_FRAMES if n_frames is None else n_frames
     stamps = np.arange(n_frames) / VI_FPS
     Rs, ts = (np.stack(x) for x in zip(*[bob_state(t)[:2] for t in stamps]))
@@ -1892,7 +1989,7 @@ def render_inertial(width, height, stereo=False, n_frames=None):
         return synthetic.to_u8(synthetic.render_frame(scene, R, t))
 
     frames = [(img(R, t), img(*synthetic.stereo_right_pose(R, t, STEREO_BASELINE))) if stereo else img(R, t)
-              for R, t in zip(Rs, ts)]
+              for R, t in zip(Rs, ts)] if render else None
     rows = [None] + [bob_imu_rows(stamps[i - 1], stamps[i]) for i in range(1, n_frames)]
     return scene, stamps, Rs, ts, frames, rows
 
@@ -2295,7 +2392,7 @@ def driver_poses(name, path, n, dt, dead):
 
     ts_est, Twc = read_tum(str(path))
     if len(ts_est) / n <= ASYNC_MIN_COVERAGE or not np.all(np.diff(ts_est) > 0) or not np.isfinite(Twc).all():
-        fail(f"shell {name}: {len(ts_est)} of {n} poses exported, or not in order, or not finite")
+        fail(f"{name}: {len(ts_est)} of {n} poses exported, or not in order, or not finite")
     return ts_est, Twc, np.asarray([int(round(t / dt)) not in dead for t in ts_est], bool)
 
 
@@ -2338,7 +2435,7 @@ def phase_shell(dev, orb_params, stereo_ate, vi_ate, gate_ate):
             os.chdir(cwd)
         secs = time.perf_counter() - t0
         cnt, host = read()
-        ts_est, Twc, _ = driver_poses("A", root / "f.txt", n, 0.05, set())
+        ts_est, Twc, _ = driver_poses("shell A", root / "f.txt", n, 0.05, set())
         ate = ate_rmse(ts_est, Twc[:, :3, 3], stamps, ts)
         have = {f: (root / "viewer_out" / f).is_file() for f in ("map.ply", "map.html", "frame_000000.png")}
         kf_lines = len((root / "kf.txt").read_text().splitlines())
@@ -2384,7 +2481,7 @@ def phase_shell(dev, orb_params, stereo_ate, vi_ate, gate_ate):
                             spy=lambda system: spied.append(spy_dead_reckoned(system.tracker)))
         secs = time.perf_counter() - t0
         cnt, host = read()
-        ts_e, Twc_e, tracked = driver_poses("B", root / "s.txt", m, 0.05, spied[0])
+        ts_e, Twc_e, tracked = driver_poses("shell B", root / "s.txt", m, 0.05, spied[0])
         ate_s = ate_rmse(ts_e[tracked], Twc_e[tracked, :3, 3], stamps_s, ts_s)
         bound_s = ASYNC_ATE_FACTOR * stereo_ate + ASYNC_ATE_SLACK_M
         log(f"shell B (stereo_euroc, default mode, {m} pairs at 752x480): {len(ts_e)} poses exported, "
@@ -2412,7 +2509,7 @@ def phase_shell(dev, orb_params, stereo_ate, vi_ate, gate_ate):
                             spy=lambda system: spied.append(spy_dead_reckoned(system.tracker)))
         secs = time.perf_counter() - t0
         cnt, host = read()
-        ts_e, Twc_e, tracked = driver_poses("C", root / "v.txt", k, 1.0 / VI_FPS, spied[0])
+        ts_e, Twc_e, tracked = driver_poses("shell C", root / "v.txt", k, 1.0 / VI_FPS, spied[0])
         ate_v = ate_rmse(ts_e[tracked], Twc_e[tracked, :3, 3], stamps_v, ts_v)
         bound_v = ASYNC_ATE_FACTOR * vi_ate + ASYNC_ATE_SLACK_M
         stage = system.tracker.map.imu_stage
@@ -2430,6 +2527,462 @@ def phase_shell(dev, orb_params, stereo_ate, vi_ate, gate_ate):
         if gate_ate and not ate_v.rmse_scaled <= bound_v:
             fail(f"shell C: scale-aligned ATE of the tracked poses {ate_v.rmse_scaled:.6f} m > {bound_v:.6f} m")
     return launches
+
+
+def scene_with(scene, width, height, K):
+    """The scene seen through another pinhole camera."""
+    import dataclasses
+
+    import numpy as np
+
+    fx, fy, cx, cy = K
+    K = np.array([[fx, 0.0, cx], [0.0, fy, cy], [0.0, 0.0, 1.0]], np.float32)
+    return dataclasses.replace(scene, width=int(width), height=int(height), K=K)
+
+
+def warp_maps(cam, width, height, f_render, size_render, nearest=False):
+    """(map_x, map_y, inside) that give each pixel of a `cam` image (pinhole
+    with radtan distortion, or KB8) its source in an ideal pinhole render of
+    focal `f_render` and size `size_render` centred on the axis: through the
+    port's own model (undistort_points / unproject). `inside`: the source
+    lies in the render and, for KB8, within FISHEYE_THETA_MAX of the axis."""
+    import numpy as np
+    import torch
+
+    from orbslam3_cpp_fork_tpu_torch.ops import camera
+
+    v, u = np.mgrid[0:height, 0:width].astype(np.float32)
+    uv = torch.from_numpy(np.stack([u, v], -1).reshape(-1, 2))
+    if cam.kind == camera.PINHOLE:
+        ideal = camera.undistort_points(cam, uv).numpy()
+        x, y = (ideal[:, 0] - cam.cx) / cam.fx, (ideal[:, 1] - cam.cy) / cam.fy
+        inside = np.ones(len(x), bool)
+    else:
+        b = camera.unproject(cam, uv).numpy()
+        x, y = b[:, 0], b[:, 1]
+        back = camera.project(cam, torch.from_numpy(b)).numpy()
+        inside = (np.degrees(np.arctan(np.hypot(x, y))) < FISHEYE_THETA_MAX) & (
+            np.abs(back - uv.numpy()).max(1) < 0.5)
+    sw, sh = size_render
+    mx = (f_render[0] * x + (sw - 1) / 2.0).astype(np.float32)
+    my = (f_render[1] * y + (sh - 1) / 2.0).astype(np.float32)
+    inside &= (mx >= 0) & (mx <= sw - 1) & (my >= 0) & (my <= sh - 1)
+    if nearest:
+        mx, my = np.round(mx), np.round(my)
+    return mx.reshape(height, width), my.reshape(height, width), inside.reshape(height, width)
+
+
+def warped_frame(scene, R_wc, t_wc, maps, f_render, size_render, depth=False):
+    """A frame of `scene` at pose (R_wc, t_wc) as the camera of `maps` sees
+    it: rendered with an ideal pinhole, then remapped (bilinear for
+    intensity, nearest for depth in meters). Outside the rendered field of
+    view: FISHEYE_BACKGROUND (0 for depth)."""
+    import numpy as np
+    import torch
+
+    from orbslam3_cpp_fork_tpu_torch.datasets import synthetic
+    from orbslam3_cpp_fork_tpu_torch.ops.image import remap_bilinear
+
+    sw, sh = size_render
+    ideal = scene_with(scene, sw, sh, (f_render[0], f_render[1], (sw - 1) / 2.0, (sh - 1) / 2.0))
+    mx, my, inside = maps
+    if depth:
+        d = synthetic.render_depth(ideal, R_wc, t_wc)
+        ix, iy = np.clip(mx, 0, sw - 1).astype(np.int64), np.clip(my, 0, sh - 1).astype(np.int64)
+        return np.where(inside, d[iy, ix], 0.0).astype(np.float32)
+    img = synthetic.render_frame(ideal, R_wc, t_wc)
+    out = remap_bilinear(torch.from_numpy(img), torch.from_numpy(mx), torch.from_numpy(my)).numpy()
+    return synthetic.to_u8(np.where(inside, out, FISHEYE_BACKGROUND))
+
+
+def driver_scene(name, small=False, count=None):
+    """The rendered sequence a driver runs on: a dict with the frames (or
+    (left, right) pairs), depth maps, IMU rows, stamps, ground-truth
+    camera-to-world poses, the cameras and the ORB budget. `small`: the CPU
+    tests' size (5 frames, 320x240, fisheye 256x256, 800
+    features); `count`: the first frames only."""
+    import numpy as np
+
+    from orbslam3_cpp_fork_tpu_torch.datasets import synthetic, tumvi
+    from orbslam3_cpp_fork_tpu_torch.ops.camera import Camera
+
+    inertial = "inertial" in name
+    stereo = name.startswith("stereo")
+    layout = ("kitti" if "kitti" in name else "tumvi" if "tumvi" in name else "euroc" if "euroc" in name
+              else "tum")
+    n = (DRIVER_SI_EUROC_PAIRS if layout == "euroc" else DRIVER_VI_FRAMES if inertial else DRIVER_FRAMES)
+    n = min(n, 5) if small else n
+    n = n if count is None else count
+    out = dict(layout=layout, stereo=stereo, inertial=inertial, n=n, depth=None, rows=None)
+    # KITTI: the bench ring's scene and circle. The TUM and TUM-VI trees:
+    # room-sized rings inside their rigs' ThDepth (TUM: depths 2.5-6.5 m;
+    # TUM-VI, 0.1 m baseline: 1.4-3.5 m; its inertial drivers' bobbing 2 m
+    # circle: 1.5-7.5 m).
+    room = {"tum": dict(r_inner=3.5, r_outer=5.5, half_height=2.0),
+            "tumvi": dict(r_inner=2.0, r_outer=3.5, half_height=1.5)}.get(layout, {})
+    if inertial:
+        w, h = (320, 240) if small else VI_STEREO_SIZE
+        ring = dict(r_inner=3.5, r_outer=5.5, half_height=2.0) if layout == "tumvi" else None
+        scene, stamps, Rs, ts, _, rows = render_inertial(w, h, n_frames=n, ring=ring, render=False)
+        out.update(stamps=stamps, rows=rows, dt=1.0 / VI_FPS)
+    else:
+        fps = {"kitti": KITTI_FPS, "tum": TUM_FPS, "tumvi": TUMVI_FPS}[layout]
+        w, h = ((320, 240) if small else {"kitti": KITTI_SIZE, "tum": TUM_SIZE, "tumvi": (752, 480)}[layout])
+        scene = synthetic.make_ring_scene(seed=17, n_points=2400 if room else 1600, size_range=(9, 15), width=w,
+                                          height=h, **room)
+        radius = {"tum": 1.0, "tumvi": 0.6}.get(layout, 2.5)
+        Rs, ts = synthetic.circle_trajectory(n_frames=300, radius=radius, total_angle=2.3 * np.pi)
+        Rs, ts = Rs[:n], ts[:n]
+        out.update(stamps=np.arange(n) / fps, dt=1.0 / fps)
+    out.update(Rs=Rs, ts=ts)
+    if layout == "kitti":
+        K = (200.0, 200.0, 159.5, 119.5) if small else KITTI_K
+        scene = scene_with(scene, w, h, K)
+        cam = Camera.pinhole(*K)
+        bf = KITTI_BF * (K[0] / KITTI_K[0])
+        frames = [synthetic.to_u8(synthetic.render_frame(scene, R, t)) for R, t in zip(Rs, ts)]
+        if stereo:
+            right = [synthetic.to_u8(synthetic.render_frame(scene, *synthetic.stereo_right_pose(R, t, bf / K[0])))
+                     for R, t in zip(Rs, ts)]
+            frames = list(zip(frames, right))
+        out.update(cams=(cam,), bf=bf, features=800 if small else KITTI_FEATURES)
+    elif layout == "tum":
+        K = (TUM_K[0] / 2, TUM_K[1] / 2, TUM_K[2] / 2, TUM_K[3] / 2) if small else TUM_K
+        if inertial:
+            K = tuple(float(v) for v in (scene.K[0, 0], scene.K[1, 1], scene.K[0, 2], scene.K[1, 2]))
+            cam = Camera.pinhole(*K)
+        else:
+            cam = Camera.pinhole(*K, dist=TUM_DIST)
+        f_r, size_r = (cam.fx, cam.fy), (w, h)
+        maps = warp_maps(cam, w, h, f_r, size_r)
+        dmaps = warp_maps(cam, w, h, f_r, size_r, nearest=True)
+        frames = [warped_frame(scene, R, t, maps, f_r, size_r) for R, t in zip(Rs, ts)]
+        depth = [warped_frame(scene, R, t, dmaps, f_r, size_r, depth=True) for R, t in zip(Rs, ts)]
+        # rgbd_inertial: the inertial phase's RGB-D rig (bf = 0.2 fx).
+        out.update(cams=(cam,), depth=depth, bf=STEREO_BASELINE * K[0] if inertial else TUM_BF * (K[0] / TUM_K[0]),
+                   features=800 if small else (N_FEATURES if inertial else TUM_FEATURES))
+    elif layout == "tumvi":
+        c1, c2, T12 = tumvi.default_cameras()
+        side = 256 if small else TUMVI_SIZE
+        if small:
+            c1, c2 = c1.scaled(0.5, 0.5), c2.scaled(0.5, 0.5)
+        tan_max = np.tan(np.radians(FISHEYE_THETA_MAX))
+        f_r = (c1.fx, c1.fy)
+        size_r = (int(2 * np.ceil(c1.fx * tan_max)) + 1,) * 2
+        frames = []
+        maps = [warp_maps(c, side, side, f_r, size_r) for c in (c1, c2)]
+        for R, t in zip(Rs, ts):
+            left = warped_frame(scene, R, t, maps[0], f_r, size_r)
+            if stereo:
+                R_r, t_r = R @ T12[:3, :3].astype(np.float32), t + R @ T12[:3, 3].astype(np.float32)
+                frames.append((left, warped_frame(scene, R_r, t_r, maps[1], f_r, size_r)))
+            else:
+                frames.append(left)
+        out.update(cams=(c1, c2), T12=T12, features=800 if small else TUMVI_FEATURES[name])
+    else:  # stereo_inertial_euroc: the inertial phase's C rig
+        K = scene.K
+        frames = [(synthetic.to_u8(synthetic.render_frame(scene, R, t)),
+                   synthetic.to_u8(synthetic.render_frame(scene, *synthetic.stereo_right_pose(R, t, STEREO_BASELINE))))
+                  for R, t in zip(Rs, ts)]
+        out.update(cams=(Camera.pinhole(K[0, 0], K[1, 1], K[0, 2], K[1, 2]),), bf=STEREO_BASELINE * float(K[0, 0]),
+                   features=800 if small else N_FEATURES)
+    out.update(frames=frames, width=w if layout != "tumvi" else side, height=h if layout != "tumvi" else side,
+               fps=1.0 / out["dt"])
+    return out
+
+
+def write_driver_settings(path, name, sc):
+    """The File.version 1.0 settings of a driver's tree: its family's
+    camera (pinhole with TUM1's distortion, or TUM-VI's two KB8 cameras and
+    Stereo.T_c1_c2 with the full overlap), rig and ORB budget; the shell
+    phase's identity IMU block for the inertial drivers."""
+    c1 = sc["cams"][0]
+    kb8 = sc["layout"] == "tumvi"
+    lines = ['%YAML:1.0', 'File.version: "1.0"', f'Camera.type: "{"KannalaBrandt8" if kb8 else "PinHole"}"']
+    names = ("k1", "k2", "k3", "k4") if kb8 else ("k1", "k2", "p1", "p2", "k3")
+    for i, c in enumerate(sc["cams"][: 2 if (kb8 and sc["stereo"]) else 1], 1):
+        lines += [f"Camera{i}.{k}: {v!r}" for k, v in zip(("fx", "fy", "cx", "cy"), (c.fx, c.fy, c.cx, c.cy))]
+        lines += [f"Camera{i}.{k}: {v!r}" for k, v in zip(names, c.dist) if v]
+    if kb8 and sc["stereo"]:
+        data = ", ".join(repr(float(v)) for v in sc["T12"].reshape(-1))
+        lines += ["Stereo.T_c1_c2: !!opencv-matrix", "   rows: 4", "   cols: 4", "   dt: f", f"   data: [{data}]"]
+        lines += [f"Camera{i}.overlapping{e}: {v}" for i in (1, 2) for e, v in (("Begin", 0), ("End", 511))]
+        lines += [f"Stereo.ThDepth: {TUM_TH_DEPTH}"]  # Stereo[-Inertial]/TUM-VI.yaml
+    elif sc["stereo"] or sc["depth"] is not None:
+        th = {"kitti": KITTI_TH_DEPTH, "tum": TUM_TH_DEPTH}.get(sc["layout"], 40.0)
+        lines += [f"Camera.bf: {float(sc['bf'])!r}", f"Stereo.ThDepth: {th}"]
+    lines += [f"Camera.width: {sc['width']}", f"Camera.height: {sc['height']}", f"Camera.fps: {sc['fps']!r}",
+              "Camera.RGB: 0", f"ORBextractor.nFeatures: {sc['features']}", "ORBextractor.scaleFactor: 1.2",
+              f"ORBextractor.nLevels: {N_LEVELS}", "ORBextractor.iniThFAST: 20", "ORBextractor.minThFAST: 7"]
+    Path(path).write_text("\n".join(lines) + "\n" + (SHELL_IMU_YAML if sc["inertial"] else ""))
+
+
+def write_kitti_tree(root, stamps, frames):
+    """KITTI odometry: sequences/00/image_0 (and image_1)/%06d.png, times.txt."""
+    import numpy as np
+
+    from orbslam3_cpp_fork_tpu_torch.utils.viewer import save_png
+
+    base = Path(root) / "sequences" / "00"
+    stereo = isinstance(frames[0], tuple)
+    for cam in ("image_0", "image_1") if stereo else ("image_0",):
+        (base / cam).mkdir(parents=True, exist_ok=True)
+    for i, f in enumerate(frames):
+        for cam, img in zip(("image_0", "image_1"), f if stereo else (f,)):
+            save_png(str(base / cam / f"{i:06d}.png"), np.asarray(img, np.uint8))
+    (base / "times.txt").write_text("".join(f"{t:.6e}\n" for t in stamps))
+
+
+def write_tum_tree(root, seq, stamps, frames, depths, imu_rows=None):
+    """TUM RGB-D: rgb/ and depth/ PNGs (16-bit depth at TUM_DEPTH_FACTOR a
+    meter, 0 past its range), rgb.txt and depth.txt (depth stamped 4 ms
+    late, as the association allows), and for an inertial tree imu.csv
+    (t_ns, gyro, acc) from rows [t, acc, gyro]."""
+    import numpy as np
+    from PIL import Image
+
+    from orbslam3_cpp_fork_tpu_torch.utils.viewer import save_png
+
+    base = Path(root) / seq
+    (base / "rgb").mkdir(parents=True, exist_ok=True)
+    (base / "depth").mkdir(parents=True, exist_ok=True)
+    rgb, dep = ["# color images"], ["# depth maps"]
+    for t, img, d in zip(stamps, frames, depths):
+        save_png(str(base / "rgb" / f"{t:.6f}.png"), np.asarray(img, np.uint8))
+        raw = np.round(np.asarray(d, np.float64) * TUM_DEPTH_FACTOR)
+        Image.fromarray(np.where(raw <= 65535, raw, 0).astype(np.uint16)).save(str(base / "depth" / f"{t + 0.004:.6f}.png"))
+        rgb.append(f"{t:.6f} rgb/{t:.6f}.png")
+        dep.append(f"{t + 0.004:.6f} depth/{t + 0.004:.6f}.png")
+    (base / "rgb.txt").write_text("\n".join(rgb) + "\n")
+    (base / "depth.txt").write_text("\n".join(dep) + "\n")
+    if imu_rows is not None:
+        with open(base / "imu.csv", "w") as fh:
+            fh.write("#timestamp [ns],w_x,w_y,w_z,a_x,a_y,a_z\n")
+            for r in np.asarray(imu_rows, np.float32):
+                vals = [float(x) for x in (*r[4:7], *r[1:4])]
+                fh.write(f"{int(round(float(r[0]) * 1e9))}," + ",".join(repr(v) for v in vals) + "\n")
+
+
+def write_driver_tree(root, name, sc):
+    """The tree and settings of a driver's scene under `root`; returns the
+    driver's positional arguments (settings, dataset root, sequence)."""
+    import numpy as np
+
+    root = Path(root)
+    rows = np.concatenate(sc["rows"][1:]) if sc["rows"] is not None else None
+    if sc["layout"] == "kitti":
+        write_kitti_tree(root, sc["stamps"], sc["frames"])
+        seq = "00"
+    elif sc["layout"] == "tum":
+        seq = "rgbd_dataset_synthetic"
+        write_tum_tree(root, seq, sc["stamps"], sc["frames"], sc["depth"], rows)
+    elif sc["layout"] == "tumvi":
+        seq = "room1"
+        write_euroc_tree(root, f"dataset-{seq}_512_16", sc["stamps"], sc["frames"], imu_rows=rows)
+    else:
+        seq = "MH_SYN"
+        write_euroc_tree(root, seq, sc["stamps"], sc["frames"], imu_rows=rows)
+    write_driver_settings(root / f"{name}.yaml", name, sc)
+    return [str(root / f"{name}.yaml"), str(root), seq]
+
+
+def driver_describe_checks(dev):
+    """The fused describe kernel against its plain version on the new
+    pyramids (a KITTI frame at 1241x376 with 2,000 features, two waves of
+    blocks; a 512x512 fisheye frame), and `orb.compute_descriptors` (the
+    patch-gather kernel, one launch a call) on the card against the same
+    call on the CPU. Returns (max angle error, compute_descriptors
+    launches)."""
+    import numpy as np
+    import torch
+
+    from orbslam3_cpp_fork_tpu_torch.ops import orb, patches
+    from orbslam3_cpp_fork_tpu_torch.ops.orb import OrbParams
+
+    err, kitti = 0.0, None
+    for name, feats in (("mono_kitti", KITTI_FEATURES), ("stereo_tumvi", TUMVI_FEATURES["stereo_tumvi"])):
+        sc = driver_scene(name, count=1)
+        f0 = sc["frames"][0][0] if sc["stereo"] else sc["frames"][0]
+        levels = frame_levels(dev, f0, OrbParams(n_features=feats))
+        kitti = kitti or levels
+        err = max(err, hold_describe(f"{name}'s {f0.shape[1]}x{f0.shape[0]} pyramid, {feats} features", *levels))
+    # compute_descriptors on level 0 of the KITTI frame, angles from the
+    # CPU (the same bins on both sides): bits exact.
+    lv, bl, kp, valid = kitti
+    xy = kp[0][valid[: len(kp[0])]].contiguous()
+    angle = orb.compute_angles(lv[0].cpu(), xy.cpu())
+    n0 = patches.launches
+    words, bits = orb.compute_descriptors(bl[0], xy, angle.to(dev))
+    torch.cuda.synchronize()
+    n = patches.launches - n0
+    w_c, b_c = orb.compute_descriptors(bl[0].cpu(), xy.cpu(), angle)
+    same = bool(torch.equal(words.cpu(), w_c)) and bool(torch.equal(bits.cpu(), b_c))
+    log(f"drivers: orb.compute_descriptors on the card, {len(xy)} keypoints of level 0: {n} patch_gather launch(es); "
+        f"words and bits equal to the CPU's: {same}")
+    if n != 1 or not same:
+        fail(f"drivers: compute_descriptors launched patch_gather {n} times or differs from the CPU")
+    return err, n
+
+
+def phase_drivers(dev, gate_ate):
+    """The ten drivers the shell phase does not run (module docstring)."""
+    import tempfile
+
+    import numpy as np
+
+    from orbslam3_cpp_fork_tpu_torch.utils.evaluation import ate_rmse
+
+    describe_err, cd_launches = driver_describe_checks(dev)
+    launches, report = 0, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in DRIVER_NAMES:
+            t0 = time.perf_counter()
+            sc = driver_scene(name)
+            root = Path(tmp) / name
+            argv = write_driver_tree(root, name, sc)
+            t_tree = time.perf_counter() - t0
+            spied, read = [], counted(dev)
+            t0 = time.perf_counter()
+            system = run_driver(name, [*argv, "--traj", str(root / "f.txt"), "--kf-traj", str(root / "kf.txt"),
+                                       "--log-level", "WARNING", "--device", str(dev)],
+                                spy=lambda system: spied.append(spy_dead_reckoned(system.tracker)))
+            secs = time.perf_counter() - t0
+            cnt, host = read()
+            n = sc["n"]
+            ts_e, Twc_e, tracked = driver_poses(f"drivers {name}", root / "f.txt", n, sc["dt"], spied[0])
+            ate = ate_rmse(ts_e[tracked], Twc_e[tracked, :3, 3], sc["stamps"], sc["ts"])
+            scaled = name.startswith("mono")
+            err = ate.rmse_scaled if scaled else ate.rmse
+            want = n * (2 if sc["stereo"] else 1)
+            ref = DRIVER_ATE_M.get(name)
+            bound = max(ref) + TOL_LOOP_ATE_M if ref else None
+            stage = system.tracker.map.imu_stage
+            report[name] = dict(exported=len(ts_e), tracked=int(tracked.sum()), frames=n, ate=err, scale=ate.scale,
+                                launches=cnt, seconds=secs, imu_stage=int(stage))
+            log(f"drivers {name} ({sc['layout']} layout, {sc['width']}x{sc['height']}, {sc['features']} features, "
+                f"{n} {'pairs' if sc['stereo'] else 'frames'}, default mode): {len(ts_e)} poses exported, "
+                f"{int(tracked.sum())} tracked while OK; {'scale-aligned' if scaled else 'unscaled'} ATE of those "
+                f"{err:.6f} m (scale {ate.scale:.4f}); bound "
+                + (f"max({ref[0]:.6f}, {ref[1]:.6f}) + {TOL_LOOP_ATE_M} = {bound:.6f} m"
+                   if bound else "none measured") + f"; IMU stage {stage}; {secs:.2f} s with the driver's start and "
+                f"shutdown ({1e3 * secs / n:.1f} ms a {'pair' if sc['stereo'] else 'frame'}, host clock; the tree "
+                f"{t_tree:.2f} s); describe launches {cnt}")
+            if cnt != want or host != want:
+                fail(f"drivers {name}: orb_describe ran {cnt} times on the card ({host} by the wrapper) for {want}")
+            launches += cnt
+            if sc["inertial"]:
+                if stage < 1:
+                    fail(f"drivers {name}: the IMU never initialized")
+                if not abs(ate.scale - 1.0) < DRIVER_VI_SCALE_TOL:
+                    fail(f"drivers {name}: scale {ate.scale:.4f} (|scale - 1| < {DRIVER_VI_SCALE_TOL} required)")
+            elif not scaled and not abs(ate.scale - 1.0) < DRIVER_SCALE_TOL:
+                fail(f"drivers {name}: scale {ate.scale:.4f} (|scale - 1| < {DRIVER_SCALE_TOL} required)")
+            if not np.isfinite(err):
+                fail(f"drivers {name}: the ATE is not finite")
+            if gate_ate and bound is None:
+                fail(f"drivers {name}: no CPU constant in DRIVER_ATE_M")
+            if gate_ate and not err <= bound:
+                fail(f"drivers {name}: ATE of the tracked poses {err:.6f} m > {bound:.6f} m")
+    return launches, describe_err, cd_launches, report
+
+
+def long_frames(scene, Rs, ts, seed=3):
+    """tests/test_long_sequence.py's frames, one at a time: each render plus
+    N(0, 3) noise from one generator, clipped to 0..255, float32."""
+    import numpy as np
+
+    from orbslam3_cpp_fork_tpu_torch.datasets import synthetic
+
+    rng = np.random.default_rng(seed)
+    for R, t in zip(Rs, ts):
+        img = synthetic.render_frame(scene, R, t)
+        yield np.clip(img + rng.normal(0, 3.0, img.shape), 0, 255).astype(np.float32)
+
+
+def render_long(n_frames=LONG_FRAMES):
+    """tests/test_long_sequence.py's scene and two-lap circle: scene,
+    stamps, camera-to-world poses."""
+    import numpy as np
+
+    from orbslam3_cpp_fork_tpu_torch.datasets import synthetic
+
+    scene = synthetic.make_ring_scene(seed=11, n_points=1600, size_range=(8, 14), width=640, height=480)
+    Rs, ts = synthetic.circle_trajectory(n_frames=LONG_FRAMES, radius=2.5, total_angle=LONG_TURNS * np.pi)
+    return scene, np.arange(n_frames) * 0.05, Rs[:n_frames], ts[:n_frames]
+
+
+def long_config(scene):
+    """tests/test_long_sequence.py's TrackerConfig: synchronous, 800
+    features, loop closing on."""
+    from orbslam3_cpp_fork_tpu_torch import convert
+    from orbslam3_cpp_fork_tpu_torch.ops.orb import OrbParams
+    from orbslam3_cpp_fork_tpu_torch.runtime.tracker import TrackerConfig
+
+    K = scene.K
+    return TrackerConfig(async_mapping=False, camera=convert.camera_from_numpy(K[0, 0], K[1, 1], K[0, 2], K[1, 2]),
+                         width=scene.width, height=scene.height, orb=OrbParams(n_features=LONG_FEATURES),
+                         enable_loop_closing=True)
+
+
+def phase_long(dev, n_frames, gate):
+    """tests/test_long_sequence.py's 560 frames on the card (module
+    docstring)."""
+    import numpy as np
+
+    from orbslam3_cpp_fork_tpu_torch.runtime.tracker import Tracker, TrackState
+    from orbslam3_cpp_fork_tpu_torch.utils.evaluation import ate_rmse
+
+    scene, stamps, Rs, ts = render_long(n_frames)
+    trk = Tracker(long_config(scene), dev)
+    removed = [0]
+    real_remove = trk.map.remove_landmarks
+
+    def remove_landmarks(ids):
+        removed[0] += len(ids)
+        return real_remove(ids)
+
+    trk.map.remove_landmarks = remove_landmarks
+    read = counted(dev)
+    n_tracked, ms = 0, []
+    t0 = time.perf_counter()
+    for i, img in enumerate(long_frames(scene, Rs, ts)):
+        t1 = time.perf_counter()
+        if trk.track(img, float(stamps[i])) is not None:
+            n_tracked += 1
+        ms.append(1e3 * (time.perf_counter() - t1))
+    secs = time.perf_counter() - t0
+    cnt, host = read()
+    m = trk.map
+    ts_est, Twc = trk.export_trajectory()
+    ate = ate_rmse(ts_est, Twc[:, :3, 3], stamps, ts)
+    loops, gbas = loop_report("long", trk, Rs, ts)
+    n_kf, n_lm = m.n_keyframes(), m.n_landmarks()
+    report = dict(frames=n_frames, tracked=n_tracked, exported=len(ts_est), keyframes=n_kf,
+                  keyframes_inserted=int(trk.n_kf_inserted), landmarks=n_lm, loops=int(trk.loop_closer.n_loops_closed),
+                  landmarks_removed=removed[0], ate=ate.rmse_scaled, scale=ate.scale, launches=cnt,
+                  ms_median=float(np.median(ms)), ms_p99=float(np.percentile(ms, 99)), seconds=secs)
+    log(f"long ({n_frames} noisy frames at 640x480, {LONG_FEATURES} features, synchronous, loop closing on): state "
+        f"{trk.state.name}; tracked {n_tracked}/{n_frames} (> {LONG_MIN_TRACKED} required); keyframes {n_kf} alive of "
+        f"{trk.n_kf_inserted} inserted (cap {m.cfg.max_keyframes}; < {LONG_MAX_KF_FRAC} x frames required), landmarks "
+        f"{n_lm} (cap {m.cfg.max_landmarks}), {removed[0]} landmarks removed; loops closed "
+        f"{trk.loop_closer.n_loops_closed}, global BAs {len(gbas)}; {len(ts_est)} poses exported; scale-aligned ATE "
+        f"{ate.rmse_scaled:.6f} m over {ate.n_pairs} poses (scale {ate.scale:.4f}; < {LONG_MAX_ATE_M} m required); "
+        f"{np.median(ms):.1f} ms a frame median, {np.percentile(ms, 99):.1f} ms p99, {secs:.1f} s in all (host "
+        f"clock); describe launches {cnt}")
+    if cnt != n_frames or host != n_frames:
+        fail(f"long: orb_describe ran {cnt} times on the card ({host} by the wrapper) for {n_frames} frames")
+    if not np.isfinite(m.lm_pos[m.lm_valid]).all():
+        fail("long: the map is not finite")
+    if gate:
+        if trk.state != TrackState.OK or not n_tracked > LONG_MIN_TRACKED * n_frames:
+            fail(f"long: state {trk.state.name}, {n_tracked} of {n_frames} frames tracked")
+        if trk.loop_closer.n_loops_closed < 1:
+            fail("long: the revisit closed no loop")
+        if not (n_kf < LONG_MAX_KF_FRAC * n_frames and n_lm < m.cfg.max_landmarks):
+            fail(f"long: culling did not bound the map ({n_kf} keyframes, {n_lm} landmarks)")
+        if not (len(ts_est) > LONG_MIN_EXPORTED * n_frames and ate.rmse_scaled < LONG_MAX_ATE_M):
+            fail(f"long: {len(ts_est)} poses exported, scale-aligned ATE {ate.rmse_scaled:.6f} m")
+    return cnt, report
 
 
 def rot_err(Ra, Rb):
@@ -2709,6 +3262,63 @@ def phase_compare_routes(dev, make, frames, block=10):
             f"(alternating blocks of {block})")
 
 
+def parallel_part(dev, frames):
+    """The drivers and long phases: run in a process of their own, beside
+    the other phases (the paths are host-bound and the host has cores to
+    spare); the last line of output is their record."""
+    gate = frames == FRAMES
+    t0 = time.perf_counter()
+    drivers_launches, drivers_err, cd_launches, drivers = phase_drivers(dev, gate_ate=gate)
+    log(f"smoke: drivers phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    long_launches, long_report = phase_long(dev, LONG_FRAMES if gate else min(frames, LONG_FRAMES), gate)
+    log(f"smoke: long phase {time.perf_counter() - t0:.1f} s")
+    log(json.dumps({"parallel": {
+        "launches_drivers": drivers_launches, "launches_long": long_launches, "describe_err": drivers_err,
+        "launches_compute_descriptors": cd_launches, "drivers": drivers, "long": long_report,
+    }}))
+
+
+def start_parallel_part(frames):
+    """Start `parallel_part` in a child process (output in temporary files;
+    killed at exit if still running)."""
+    import atexit
+    import tempfile
+
+    out, err = tempfile.TemporaryFile(mode="w+"), tempfile.TemporaryFile(mode="w+")
+    proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--parallel-part", "--frames", str(frames)],
+                            stdout=out, stderr=err, text=True)
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+    atexit.register(stop)
+    return proc, out, err
+
+
+def collect_parallel_part(child, deadline):
+    """Wait for the child until `deadline` (perf_counter), print its output
+    and return its record; its failure fails the smoke."""
+    proc, out, err = child
+    try:
+        rc = proc.wait(timeout=max(1.0, deadline - time.perf_counter()))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = None
+    out.seek(0)
+    err.seek(0)
+    lines, errs = out.read().splitlines(), err.read()
+    for line in lines[:-1]:
+        log(line)
+    if rc != 0 or not lines or not lines[-1].startswith('{"parallel"'):
+        sys.stderr.write(errs[-8000:])
+        fail(f"the drivers and long phases' process ended with {'a timeout' if rc is None else f'exit {rc}'}")
+    return json.loads(lines[-1])["parallel"]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--frames", type=int, default=FRAMES,
@@ -2717,6 +3327,8 @@ def main(argv=None) -> int:
                     help="also profile N tracked frames with torch.profiler (default: off)")
     ap.add_argument("--compare-routes", action="store_true",
                     help="also time the tracker with the describe stage by either route, in alternating blocks")
+    ap.add_argument("--parallel-part", action="store_true",
+                    help="run only the drivers and long phases (the smoke runs them so, in a child process)")
     args = ap.parse_args(argv)
 
     import torch
@@ -2733,6 +3345,12 @@ def main(argv=None) -> int:
     from orbslam3_cpp_fork_tpu_torch.ops.orb import OrbParams
 
     t_smoke = time.perf_counter()
+    if args.parallel_part:
+        dev = get_device()
+        for name in _kernels.build_all():  # built already by the parent: loaded
+            _kernels.load(name)
+        parallel_part(dev, args.frames)
+        return 0
     card = card_line()
     log(f"device: {card}")
     dev = get_device()
@@ -2748,6 +3366,13 @@ def main(argv=None) -> int:
         for line in ptxas.strip().splitlines():
             log(f"build: {name}: {line.strip()}")
 
+    child = start_parallel_part(args.frames)
+    laps = [time.perf_counter()]
+
+    def lap(name):
+        laps.append(time.perf_counter())
+        log(f"smoke: {name} {laps[-1] - laps[-2]:.1f} s (host clock)")
+
     orb_params = OrbParams(n_features=N_FEATURES)
     scene, Rs, ts, frames = render_ring(args.frames)
     inputs = frame_levels(dev, frames[0], orb_params)
@@ -2758,19 +3383,30 @@ def main(argv=None) -> int:
         dev, make, ts, frames, min(CPU_CHECK, args.frames), gate_ate=args.frames == FRAMES
     )
     gather_launches = phase_per_level_path(dev, frames[: min(PER_LEVEL_FRAMES, args.frames)], orb_params)
+    lap("kernel, main and per-level")
     slam_launches, slam = phase_slam(dev, scene, ts, frames, orb_params, gate_ate=args.frames == FRAMES)
     async_launches = phase_async(dev, scene, ts, frames, orb_params, slam, gate_ate=args.frames == FRAMES)
     if args.frames >= LADDER_FRAMES:
         phase_ladder(dev, scene, frames, orb_params)
+    lap("slam, async and ladder")
     loop_launches, loop_trk = phase_loop(dev, orb_params, gate_ate=args.frames == FRAMES)
+    lap("loop")
     stereo_launches, rgbd_launches, stereo_describe_err, stereo_ate = phase_stereo(
         dev, orb_params, gate_ate=args.frames == FRAMES)
+    lap("stereo")
     merge_launches, merge_describe_err = phase_merge(dev, orb_params, gate_ate=args.frames == FRAMES)
+    lap("merge")
     inertial_launches, inertial_describe_err, vi_ate, vi_trk = phase_inertial(
         dev, orb_params, gate_ate=args.frames == FRAMES)
+    lap("inertial")
     entry_launches = phase_entry(dev)
+    lap("entry")
     shell_launches = phase_shell(dev, orb_params, stereo_ate, vi_ate, gate_ate=args.frames == FRAMES)
+    lap("shell")
     phase_scale(dev, loop_trk, vi_trk)
+    lap("scale")
+    log(f"smoke: the phases of this process ended at {time.perf_counter() - t_smoke:.1f} s")
+    par = collect_parallel_part(child, t_smoke + PARALLEL_DEADLINE_S)
     if args.compare_routes:
         phase_compare_routes(dev, make, frames)
     if args.profile:
@@ -2791,14 +3427,19 @@ def main(argv=None) -> int:
             # stereo phase, two a pair in the inertial phase's C; one a call
             # of entry()'s fn; one a frame and two a pair through the
             # drivers of the shell phase; each counted from 0.
+            # One a frame and two a pair through the drivers phase's ten
+            # drivers, one a frame of the long phase (a process of their own).
             "launches": describe_launches + slam_launches + async_launches + loop_launches + stereo_launches
-            + rgbd_launches + merge_launches + inertial_launches + entry_launches + shell_launches,
+            + rgbd_launches + merge_launches + inertial_launches + entry_launches + shell_launches
+            + par["launches_drivers"] + par["launches_long"],
             "launches_localization": describe_launches, "launches_slam": slam_launches,
             "launches_async": async_launches, "launches_loop": loop_launches,
             "launches_stereo": stereo_launches, "launches_rgbd": rgbd_launches,
             "launches_merge": merge_launches, "launches_inertial": inertial_launches,
             "launches_entry": entry_launches, "launches_shell": shell_launches,
-            "max_abs_err": max(describe["max_abs_err"], stereo_describe_err, merge_describe_err, inertial_describe_err),
+            "launches_drivers": par["launches_drivers"], "launches_long": par["launches_long"],
+            "max_abs_err": max(describe["max_abs_err"], stereo_describe_err, merge_describe_err, inertial_describe_err,
+                               par["describe_err"]),
             "ms": describe["ms"], "plain_ms": describe["plain_ms"],
             "bound_ms": describe["bound_ms"], "bound_by": describe["bound_by"],
             # No single PyTorch call gathers windows, sums moments and
@@ -2809,7 +3450,12 @@ def main(argv=None) -> int:
         {
             "name": "patch_gather_dual", "route": "cuda",
             "source": "orbslam3_cpp_fork_tpu_torch/csrc/patch_gather.cu", "replaces": tpu_kernel,
-            "launches": gather_launches, "max_abs_err": gather["max_abs_err"],
+            # 8 a frame of the per-level route; 1 a call of
+            # orb.compute_descriptors (the drivers phase's process).
+            "launches": gather_launches + par["launches_compute_descriptors"],
+            "launches_per_level": gather_launches,
+            "launches_compute_descriptors": par["launches_compute_descriptors"],
+            "max_abs_err": gather["max_abs_err"],
             "ms": gather["ms"], "plain_ms": gather["plain_ms"],
             "bound_ms": gather["bound_ms"], "bound_by": gather["bound_by"],
             # The plain version is ~10 clamps and an advanced-indexing read;

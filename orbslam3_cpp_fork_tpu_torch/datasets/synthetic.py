@@ -28,6 +28,32 @@ def _so3_exp_np(w: np.ndarray) -> np.ndarray:
     return (np.eye(3, dtype=np.float32) + np.float32(a) * W + np.float32(b) * (W @ W)).astype(np.float32)
 
 
+def _so3_log_np(R: np.ndarray) -> np.ndarray:
+    """Rotation -> tangent (3,) in f32 numpy, through the quaternion of
+    Shepperd's method as the reference's utils.lie.so3_log."""
+    R = np.asarray(R, np.float32)
+    (m00, m01, m02), (m10, m11, m12), (m20, m21, m22) = R
+    z = np.float32(0.0)
+    mags = [max(z, 1 + m00 - m11 - m22), max(z, 1 - m00 + m11 - m22), max(z, 1 - m00 - m11 + m22),
+            max(z, 1 + (m00 + m11 + m22))]
+    cands = [
+        [mags[0], m10 + m01, m02 + m20, m21 - m12],
+        [m10 + m01, mags[1], m21 + m12, m02 - m20],
+        [m02 + m20, m21 + m12, mags[2], m10 - m01],
+        [m21 - m12, m02 - m20, m10 - m01, mags[3]],
+    ]
+    q = np.asarray(cands[int(np.argmax(mags))], np.float32)
+    q = (q / np.float32(np.linalg.norm(q))).astype(np.float32)
+    if q[3] < 0:
+        q = -q
+    n = np.float32(np.linalg.norm(q[:3]))
+    if n < 1e-6:
+        scale = np.float32(2.0) / max(q[3], np.float32(0.5))
+    else:
+        scale = np.float32(2.0) * np.float32(np.arctan2(n, q[3])) / n
+    return (q[:3] * np.float32(scale)).astype(np.float32)
+
+
 @dataclasses.dataclass
 class SyntheticScene:
     points: np.ndarray  # (P,3) world
@@ -268,6 +294,42 @@ def render_depth(scene: SyntheticScene, R_wc: np.ndarray, t_wc: np.ndarray) -> n
 def stereo_right_pose(R_wc: np.ndarray, t_wc: np.ndarray, baseline: float):
     """Camera-to-world pose of the right camera of a rectified pair."""
     return R_wc, t_wc + R_wc @ np.array([baseline, 0.0, 0.0], np.float32)
+
+
+def render_sequence(scene, Rs_wc, ts_wc):
+    """Float frames of the camera-to-world poses (Rs_wc, ts_wc)."""
+    return [render_frame(scene, R, t) for R, t in zip(Rs_wc, ts_wc)]
+
+
+def imu_from_trajectory(Rs_wc, ts_wc, frame_dt: float, imu_rate: int = 200):
+    """Exact IMU measurements for a piecewise-linear interpolation of the
+    trajectory: per frame interval a list entry (acc, gyro, dt) of f32
+    arrays at `imu_rate`, the rotation at constant rate between frames and
+    the acceleration from central differences of the positions. Gravity is
+    -9.81 along world z."""
+    from ..ops.imu import GRAVITY
+
+    g = np.array([0.0, 0.0, -GRAVITY])
+    n = len(Rs_wc)
+    sub = max(int(round(imu_rate * frame_dt)), 2)
+    out = []
+    for i in range(n - 1):
+        R0, R1 = Rs_wc[i], Rs_wc[i + 1]
+        t0, t1 = ts_wc[i], ts_wc[i + 1]
+        w = _so3_log_np(R0.T @ R1) / frame_dt
+        accs, gyrs, dts = [], [], []
+        dt = frame_dt / sub
+        v0 = (t1 - (ts_wc[i - 1] if i > 0 else t0)) / (frame_dt * (2 if i > 0 else 1))
+        v1 = ((ts_wc[i + 2] if i + 2 < n else t1) - t0) / (frame_dt * (2 if i + 2 < n else 1))
+        a_w = (v1 - v0) / frame_dt
+        for s in range(sub):
+            alpha = (s + 0.5) / sub
+            R_ws = R0 @ _so3_exp_np(w * frame_dt * alpha)
+            accs.append(R_ws.T @ (a_w - g))
+            gyrs.append(w)
+            dts.append(dt)
+        out.append((np.asarray(accs, np.float32), np.asarray(gyrs, np.float32), np.asarray(dts, np.float32)))
+    return out
 
 
 def to_u8(img: np.ndarray) -> np.ndarray:

@@ -55,6 +55,11 @@ class Camera:
             _f32(np.float32(self.cx) * sx), _f32(np.float32(self.cy) * sy), self.dist, self.kind,
         )
 
+    @property
+    def K(self) -> torch.Tensor:
+        """The (3, 3) float32 intrinsic matrix, on the CPU."""
+        return torch.tensor([[self.fx, 0.0, self.cx], [0.0, self.fy, self.cy], [0.0, 0.0, 1.0]], dtype=torch.float32)
+
 
 def _distort_radtan(cam: Camera, xn, yn):
     k1, k2, p1, p2, k3 = cam.dist
@@ -89,6 +94,26 @@ def project(cam: Camera, pc: torch.Tensor, distort: bool = True) -> torch.Tensor
     u = torch.where(on_axis, torch.full_like(r, cam.cx), cam.fx * theta_d * (x / r_safe) + cam.cx)
     v = torch.where(on_axis, torch.full_like(r, cam.cy), cam.fy * theta_d * (y / r_safe) + cam.cy)
     return torch.stack([u, v], dim=-1)
+
+
+def project_jacobian(cam: Camera, pc: torch.Tensor) -> torch.Tensor:
+    """d(uv)/d(pc): (...,2,3). The ideal-pinhole Jacobian in closed form
+    (distortion is handled by undistorting the observations), the KB8 model
+    by forward-mode autodiff of `project`, vectorized over the batch."""
+    x, y, z = pc[..., 0], pc[..., 1], pc[..., 2]
+    if cam.kind == PINHOLE:
+        z_safe = torch.where(torch.abs(z) < 1e-9, torch.full_like(z, 1e-9), z)
+        iz = 1.0 / z_safe
+        iz2 = iz * iz
+        zero = torch.zeros_like(x)
+        row_u = torch.stack([cam.fx * iz, zero, -cam.fx * x * iz2], dim=-1)
+        row_v = torch.stack([zero, cam.fy * iz, -cam.fy * y * iz2], dim=-1)
+        return torch.stack([row_u, row_v], dim=-2)
+    # Each point keeps a leading dim of 1: under jacfwd a 0-d tensor met by
+    # a Python number would compute in float64.
+    flat = pc.reshape(-1, 1, 3)
+    J = torch.func.vmap(torch.func.jacfwd(lambda p: project(cam, p)[0]))(flat)
+    return J.reshape(*pc.shape[:-1], 2, 3)
 
 
 def true_div(x: torch.Tensor, d: float) -> torch.Tensor:

@@ -113,10 +113,48 @@ def fast_raw_score(img: torch.Tensor) -> torch.Tensor:
     return torch.where(inb, score, torch.zeros_like(score))
 
 
+def fast_score(img: torch.Tensor, threshold: float) -> torch.Tensor:
+    """FAST-9/16 corner score at a threshold (0 where not a corner)."""
+    s = fast_raw_score(img)
+    return torch.where(s > threshold, s, torch.zeros_like(s))
+
+
 def nms3(score: torch.Tensor) -> torch.Tensor:
     """3x3 non-maximum suppression (-inf padding at the border)."""
     m = F.max_pool2d(score[None, None], 3, stride=1, padding=1)[0, 0]
     return torch.where(score >= m, score, torch.zeros_like(score))
+
+
+def orientation_maps(img: torch.Tensor) -> torch.Tensor:
+    """(2, H, W) maps of m10 (x moment) and m01 (y moment) of the radius-15
+    circular IC_Angle patch around every pixel (edge-padded image). One
+    float64 convolution with the patch's moment weights, rounded to float32
+    once (the reference's shift-add form was a TPU lowering choice)."""
+    r = HALF_PATCH
+    h, w = img.shape
+    wts = torch.from_numpy(patches_mod._moment_weights()).to(img.device, torch.float64)
+    kern = wts.T.reshape(2, 1, patches_mod.PATCH_ROWS, patches_mod.PATCH_COLS)
+    kern = kern[:, :, patches_mod.RAD - r : patches_mod.RAD + r + 1, patches_mod.RAD - r : patches_mod.RAD + r + 1]
+    p = F.pad(img.to(torch.float64)[None, None], (r, r, r, r), mode="replicate")
+    return F.conv2d(p, kern.contiguous())[0].to(torch.float32).reshape(2, h, w)
+
+
+def compute_angles(img: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
+    """IC_Angle at integer keypoint positions xy = (x, y) on this level."""
+    m = orientation_maps(img)
+    x, y = xy[:, 0].long(), xy[:, 1].long()
+    return torch.atan2(m[1][y, x], m[0][y, x])
+
+
+def compute_descriptors(blurred: torch.Tensor, xy: torch.Tensor, angle: torch.Tensor):
+    """Steered BRIEF-256 of integer keypoints on one blurred level: (packed
+    words (N, 8) int64 holding uint32 values, bits (N, 256) int8). The
+    patch gather (`patches.extract_patches`, the `csrc/patch_gather.cu`
+    kernel on a CUDA tensor), then `brief_from_patches` and packing; bit j
+    of word i is pair i*32 + j."""
+    p = patches_mod.extract_patches(blurred, xy)
+    bits = patches_mod.brief_from_patches(p, angle)
+    return pack_bits(bits), bits
 
 
 def _per_level_budget(n_features: int, n_levels: int, scale: float) -> list[int]:

@@ -170,6 +170,12 @@ def so3_normalize(R: torch.Tensor) -> torch.Tensor:
     return quat_to_rot(rot_to_quat(R))
 
 
+def se3_identity(batch_shape=(), dtype=torch.float32, device=None):
+    """(R, t) of the identity, broadcast to `batch_shape`."""
+    R = torch.eye(3, dtype=dtype, device=device).expand(*batch_shape, 3, 3).clone()
+    return R, torch.zeros((*batch_shape, 3), dtype=dtype, device=device)
+
+
 def se3_exp(xi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """xi = (rho, phi) (...,6) -> (R, t) with t = Jl(phi) @ rho."""
     rho, phi = xi[..., :3], xi[..., 3:]
@@ -207,8 +213,7 @@ def se3_apply(R, t, x):
 
 
 def sim3_identity(batch_shape=(), dtype=torch.float32, device=None):
-    R = torch.eye(3, dtype=dtype, device=device).expand(*batch_shape, 3, 3).clone()
-    t = torch.zeros((*batch_shape, 3), dtype=dtype, device=device)
+    R, t = se3_identity(batch_shape, dtype, device)
     return torch.ones(batch_shape, dtype=dtype, device=device), R, t
 
 

@@ -141,3 +141,93 @@ def test_tumvi_calibration_is_kb8():
         assert (x.fx, x.fy, x.cx, x.cy) == tuple(float(v) for v in (y.fx, y.fy, y.cx, y.cy))
         assert x.dist == tuple(float(v) for v in np.asarray(y.dist))
     assert np.array_equal(Ta, Tb)
+
+
+# tests/test_camera.py's six cases on the port, each also held against the
+# reference on the same points. Tolerances: round trips as the reference
+# test's bars; Jacobians against torch autodiff and against the reference,
+# pinhole 1e-6 relative, KB8 1e-4 relative (of the largest entry).
+TOL_JAC_PINHOLE = 1e-6
+TOL_JAC_KB8 = 1e-4
+
+
+def _rand_points(seed, n=256, zmin=0.5, zmax=10.0, spread=0.6):
+    rng = np.random.default_rng(seed)
+    z = rng.uniform(zmin, zmax, size=(n, 1))
+    xy = rng.uniform(-spread, spread, size=(n, 2)) * z
+    return np.concatenate([xy, z], axis=1).astype(np.float32)
+
+
+EUROC = (458.654, 457.296, 367.215, 248.375, (-0.28340811, 0.07395907, 0.00019359, 1.76187114e-05, 0.0))
+TUMVI = (190.97847715128717, 190.9733070521226, 254.93170605935475, 256.8974428996504,
+         0.0034823894022493434, 0.0007150348452162257, -0.0020532361418706202, 0.00020293673591811182)
+
+
+def _pinhole(*args):
+    return tcam.Camera.pinhole(*args), jcam.Camera.pinhole(*args)
+
+
+def test_pinhole_ideal_roundtrip():
+    got, ref = _pinhole(458.0, 457.0, 367.0, 248.0)
+    pc = _rand_points(10)
+    uv = tcam.project(got, torch.from_numpy(pc))
+    np.testing.assert_allclose(uv.numpy(), np.asarray(jcam.project(ref, jnp.asarray(pc))), rtol=TOL_CAM, atol=0)
+    b = tcam.unproject(got, uv).numpy()
+    np.testing.assert_allclose(b[..., :2], pc[..., :2] / pc[..., 2:3], atol=1e-5)
+    assert np.array_equal(got.K.numpy(), np.asarray(ref.K)), "tolerance: exact K"
+    assert got.K.dtype == torch.float32 and got.K.shape == (3, 3)
+
+
+def test_pinhole_radtan_roundtrip():
+    got, ref = _pinhole(*EUROC)
+    pc = _rand_points(11, spread=0.5)
+    uv = tcam.project(got, torch.from_numpy(pc))
+    b = tcam.unproject(got, uv).numpy()
+    b_ref = np.asarray(jcam.unproject(ref, jcam.project(ref, jnp.asarray(pc))))
+    np.testing.assert_allclose(b, b_ref, rtol=0, atol=TOL_CAM)
+    np.testing.assert_allclose(b[..., :2], pc[..., :2] / pc[..., 2:3], atol=1e-4)
+
+
+def test_undistort_points_ideal_reproject():
+    got, ref = _pinhole(*EUROC)
+    pc = torch.from_numpy(_rand_points(12, spread=0.4))
+    uv_ideal = tcam.undistort_points(got, tcam.project(got, pc))
+    np.testing.assert_allclose(uv_ideal.numpy(), tcam.project(got, pc, distort=False).numpy(), atol=0.05)
+    u_ref = np.asarray(jcam.undistort_points(ref, jcam.project(ref, jnp.asarray(pc.numpy()))))
+    np.testing.assert_allclose(uv_ideal.numpy(), u_ref, rtol=0, atol=TOL_CAM * np.abs(u_ref).max())
+
+
+def test_kb8_roundtrip():
+    got = tcam.Camera.kb8(*TUMVI)
+    pc = _rand_points(13, spread=1.5)
+    b = tcam.unproject(got, tcam.project(got, torch.from_numpy(pc))).numpy()
+    dir_ref = pc / np.linalg.norm(pc, axis=-1, keepdims=True)
+    np.testing.assert_allclose(b / np.linalg.norm(b, axis=-1, keepdims=True), dir_ref, atol=1e-4)
+
+
+def _jacobians(got, ref, pc, distort):
+    J = tcam.project_jacobian(got, torch.from_numpy(pc)).numpy()
+    J_ad = torch.func.vmap(torch.func.jacfwd(lambda p: tcam.project(got, p[None], distort=distort)[0]))(
+        torch.from_numpy(pc)).numpy()
+    J_ref = np.asarray(jcam.project_jacobian(ref, jnp.asarray(pc)))
+    assert J.shape == J_ref.shape == (len(pc), 2, 3) and J.dtype == np.float32
+    return J, J_ad, J_ref
+
+
+def test_pinhole_jacobian_matches_autodiff():
+    got, ref = _pinhole(458.0, 457.0, 367.0, 248.0)
+    pc = _rand_points(14, 16)
+    J, J_ad, J_ref = _jacobians(got, ref, pc, distort=False)
+    np.testing.assert_allclose(J, J_ad, atol=1e-3, rtol=1e-3)
+    np.testing.assert_allclose(J, J_ref, rtol=0, atol=TOL_JAC_PINHOLE * np.abs(J_ref).max())
+    # A batch of any leading shape.
+    J2 = tcam.project_jacobian(got, torch.from_numpy(pc.reshape(4, 4, 3))).numpy()
+    assert np.array_equal(J2.reshape(16, 2, 3), J)
+
+
+def test_kb8_jacobian_matches_autodiff():
+    got, ref = tcam.Camera.kb8(*TUMVI), jcam.Camera.kb8(*TUMVI)
+    pc = _rand_points(15, 16, spread=1.0)
+    J, J_ad, J_ref = _jacobians(got, ref, pc, distort=True)
+    np.testing.assert_allclose(J, J_ad, atol=1e-3, rtol=1e-3)
+    np.testing.assert_allclose(J, J_ref, rtol=0, atol=TOL_JAC_KB8 * np.abs(J_ref).max())

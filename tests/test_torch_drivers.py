@@ -21,6 +21,7 @@ import pytest
 import torch
 from PIL import Image
 
+import chip_smoke
 from orbslam3_cpp_fork_tpu_torch.datasets import euroc, kitti, synthetic, tum
 from orbslam3_cpp_fork_tpu_torch.runtime.system import System
 from orbslam3_cpp_fork_tpu_torch.runtime.tracker import Sensor
@@ -58,7 +59,7 @@ def _two_torch_threads():
 def rendered():
     scene = synthetic.make_scene(seed=3)
     Rs, ts = synthetic.smooth_trajectory(n_frames=N_FRAMES, step=0.12, yaw_rate=0.002)
-    frames = [synthetic.render_frame(scene, Rs[i], ts[i]) for i in range(N_FRAMES)]
+    frames = synthetic.render_sequence(scene, Rs, ts)
     return scene, Rs, ts, frames
 
 
@@ -179,7 +180,6 @@ def test_full_width_mono_euroc_ate(tmp_path, capsys, run):
     import subprocess
     import sys
 
-    import chip_smoke
     from orbslam3_cpp_fork_tpu_torch.examples import mono_euroc
     from orbslam3_cpp_fork_tpu_torch.utils.evaluation import ate_rmse
     from orbslam3_cpp_fork_tpu_torch.utils.trajectory import read_tum
@@ -205,3 +205,44 @@ def test_full_width_mono_euroc_ate(tmp_path, capsys, run):
             print(f"\nshell A constants, run {run}: {name} driver, {len(ts_est)} poses of {n}, scale-aligned ATE "
                   f"{ate.rmse_scaled!r} m (scale {ate.scale:.4f})")
         assert len(ts_est) > 0.8 * n and np.all(np.diff(ts_est) > 0) and np.isfinite(ate.rmse_scaled)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("name", chip_smoke.DRIVER_NAMES)
+def test_full_width_driver_ate(tmp_path, capsys, name):
+    """The smoke's drivers phase on the CPU: the driver's tree at its
+    family's published width (chip_smoke.driver_scene), through the
+    reference's examples/<name>.py (a subprocess) and the port's driver
+    (in-process, "cpu"), both in the default mode. Prints the ATEs behind
+    chip_smoke.DRIVER_ATE_M (scale-aligned for the mono drivers, unscaled
+    otherwise, over every exported pose) and each run's scale."""
+    import subprocess
+    import sys
+
+    from orbslam3_cpp_fork_tpu_torch.utils.evaluation import ate_rmse
+    from orbslam3_cpp_fork_tpu_torch.utils.trajectory import read_tum
+
+    torch.set_num_threads(4)
+    sc = chip_smoke.driver_scene(name)
+    common = [*chip_smoke.write_driver_tree(tmp_path, name, sc), "--log-level", "WARNING"]
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, os.path.join(REPO, "examples", f"{name}.py"), *common,
+                          "--traj", str(tmp_path / "ref.txt"), "--kf-traj", str(tmp_path / "ref_kf.txt")],
+                         capture_output=True, text=True, env=env, timeout=5400)
+    runs = {"port": None}
+    if out.returncode == 0:
+        runs = {"ref": None, **runs}
+    else:
+        with capsys.disabled():
+            print(f"\n{name}: the reference's driver failed (exit {out.returncode}):\n{out.stderr[-3000:]}")
+    module = importlib.import_module(f"orbslam3_cpp_fork_tpu_torch.examples.{name}")
+    module.main([*common, "--traj", str(tmp_path / "port.txt"), "--kf-traj", str(tmp_path / "port_kf.txt"),
+                 "--device", "cpu"])
+    for run in runs:
+        ts_est, Twc = read_tum(str(tmp_path / f"{run}.txt"))
+        ate = ate_rmse(ts_est, Twc[:, :3, 3], sc["stamps"], sc["ts"])
+        err = ate.rmse_scaled if name.startswith("mono") else ate.rmse
+        with capsys.disabled():
+            print(f"\ndrivers constants: {name}: {run} driver, {len(ts_est)} poses of {sc['n']}, ATE {err!r} m "
+                  f"({'scale-aligned' if name.startswith('mono') else 'unscaled'}; scale {ate.scale:.4f})")
+        assert len(ts_est) > 0.8 * sc["n"] and np.all(np.diff(ts_est) > 0) and np.isfinite(err)

@@ -28,6 +28,16 @@ from orbslam3_cpp_fork_tpu_torch.ops import patches as tpatches
 H, W, NF = 240, 320, 300
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: the file extracts whole frames beside the other
+    test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _frame(i=3):
     scene = synthetic.make_ring_scene(seed=7, n_points=1200, size_range=(9, 15), width=W, height=H)
     Rs, ts = synthetic.circle_trajectory(n_frames=300, radius=2.5, total_angle=2.3 * np.pi)
@@ -153,3 +163,176 @@ def test_pack_unpack_roundtrip():
     ref = np.packbits(bits.astype(np.uint8), axis=-1, bitorder="little").view(np.uint32)
     assert np.array_equal(words.numpy().astype(np.uint32), ref), "tolerance: exact"
     assert np.array_equal(torb.unpack_bits(words).numpy(), bits), "tolerance: exact"
+
+
+# tests/test_orb.py's six cases on the port (the FAST cases through
+# `fast_score`), each also held against the reference on the same image,
+# and the reference's per-level helpers `orientation_maps`,
+# `compute_angles` and `compute_descriptors`. Tolerances: FAST scores and
+# descriptor bits exact; orientation maps 1e-5 of the largest moment;
+# angles 1e-5 rad wherever |m| >= MIN_MOMENT (the chip smoke's rule).
+MIN_MOMENT = 5e4
+
+
+def synthetic_texture(h=240, w=320, seed=0, n_blobs=120):
+    """tests/test_orb.py's textured image with sharp blob corners."""
+    rng = np.random.default_rng(seed)
+    img = np.full((h, w), 40.0, np.float32)
+    for _ in range(n_blobs):
+        y = rng.integers(20, h - 28)
+        x = rng.integers(20, w - 28)
+        sy = rng.integers(4, 14)
+        sx = rng.integers(4, 14)
+        img[y : y + sy, x : x + sx] = rng.uniform(90, 230)
+    return img
+
+
+def test_fast_detects_isolated_corner():
+    img = np.full((64, 64), 50.0, np.float32)
+    img[30:40, 30:40] = 200.0
+    s = torb.fast_score(torch.from_numpy(img), 20.0)
+    assert np.array_equal(s.numpy(), np.asarray(jorb.fast_score_jit(jnp.asarray(img), 20.0))), "tolerance: exact"
+    score = torb.nms3(s).numpy()
+    ys, xs = np.nonzero(score)
+    assert len(ys) >= 4
+    corners = np.array([[30, 30], [30, 39], [39, 30], [39, 39]])
+    for y, x in zip(ys, xs):
+        assert np.abs(corners - [y, x]).sum(axis=1).min() <= 2, (y, x)
+
+
+def test_fast_no_response_on_flat():
+    img = torch.full((64, 64), 77.0)
+    assert torb.fast_score(img, 7.0).max() == 0.0
+    x = np.random.default_rng(4).integers(0, 255, (61, 83)).astype(np.float32)
+    for th in (7.0, 20.0):
+        assert np.array_equal(torb.fast_score(torch.from_numpy(x), th).numpy(),
+                              np.asarray(jorb.fast_score_jit(jnp.asarray(x), th))), "tolerance: exact"
+
+
+@pytest.fixture(scope="module")
+def texture_feats():
+    p = torb.OrbParams(n_features=300)
+    out = {}
+    for seed, shift in ((0, 0), (5, 0), (5, 7)):
+        img = np.roll(synthetic_texture(seed=seed), shift, axis=1)
+        out[seed, shift] = torb.extract_orb(torch.from_numpy(img), p)
+    return out
+
+
+def test_extract_orb_fills_budget_and_bounds(texture_feats):
+    f = texture_feats[0, 0]
+    valid = f.valid.numpy()
+    assert valid.sum() > 200, valid.sum()
+    xy = f.xy.numpy()[valid]
+    assert xy[:, 0].min() >= 0 and xy[:, 0].max() < 320
+    assert xy[:, 1].min() >= 0 and xy[:, 1].max() < 240
+    qx, qy = xy[:, 0] > 160, xy[:, 1] > 120
+    for mask in (qx & qy, qx & ~qy, ~qx & qy, ~qx & ~qy):
+        assert mask.sum() > 10
+
+
+def test_hamming_matrix_matches_popcount():
+    from orbslam3_cpp_fork_tpu.ops import matching as jm
+    from orbslam3_cpp_fork_tpu_torch.ops import matching as tm
+
+    rng = np.random.default_rng(3)
+    bits_a = rng.integers(0, 2, size=(37, 256)).astype(np.int8)
+    bits_b = rng.integers(0, 2, size=(53, 256)).astype(np.int8)
+    brute = (bits_a[:, None, :] != bits_b[None, :, :]).sum(-1)
+    d1 = tm.hamming_matrix(torch.from_numpy(bits_a), torch.from_numpy(bits_b)).numpy()
+    d2 = tm.popcount_hamming(torb.pack_bits(torch.from_numpy(bits_a)), torb.pack_bits(torch.from_numpy(bits_b))).numpy()
+    np.testing.assert_array_equal(d1, brute)
+    np.testing.assert_array_equal(d2, brute)
+    np.testing.assert_array_equal(d1, np.asarray(jm.hamming_matrix(jnp.asarray(bits_a), jnp.asarray(bits_b))))
+
+
+def test_descriptors_match_under_translation(texture_feats):
+    from orbslam3_cpp_fork_tpu_torch.ops import matching as tm
+
+    fa, fb, shift = texture_feats[5, 0], texture_feats[5, 7], 7
+    dist = tm.hamming_matrix(fa.desc_i8, fb.desc_i8)
+    idx, ok = tm.match_nn(dist, fa.valid, fb.valid, max_dist=50, ratio=0.9)
+    ok, idx = ok.numpy(), idx.numpy()
+    assert ok.sum() > 50, ok.sum()
+    dx = fb.xy.numpy()[idx][:, 0] - fa.xy.numpy()[:, 0]
+    dy = fb.xy.numpy()[idx][:, 1] - fa.xy.numpy()[:, 1]
+    assert abs(np.median(dx[ok]) - shift) < 1.0
+    assert abs(np.median(dy[ok])) < 1.0
+    assert ((np.abs(dx[ok] - shift) < 2) & (np.abs(dy[ok]) < 2)).mean() > 0.8
+
+
+def test_match_nn_ratio_and_crosscheck():
+    from orbslam3_cpp_fork_tpu_torch.ops import matching as tm
+
+    a = np.zeros((4, 256), np.int8)
+    b = np.zeros((5, 256), np.int8)
+    a[0, :10] = 1
+    b[2, :10] = 1
+    a[1, 50:80] = 1
+    b[0, 50:78] = 1
+    b[1, 50:76] = 1
+    dist = tm.hamming_matrix(torch.from_numpy(a), torch.from_numpy(b))
+    idx, ok = tm.match_nn(dist, torch.ones(4, dtype=torch.bool), torch.ones(5, dtype=torch.bool), max_dist=50, ratio=0.5)
+    assert bool(ok[0]) and int(idx[0]) == 2
+    assert not bool(ok[1])
+
+
+@pytest.mark.parametrize("level", [0, 3])
+def test_orientation_angles_and_descriptors_per_level(both, level):
+    """orientation_maps / compute_angles / compute_descriptors on one level
+    of the rendered frame's pyramid, with that level's keypoints, against
+    the reference; the descriptors from the reference's own angles (the
+    same bins on both sides), bits exact."""
+    img = both[0]
+    lv = tim.build_pyramid(torch.from_numpy(img))[level]
+    lv_np = lv.numpy()
+    m_ref = np.asarray(jax.jit(jorb.orientation_maps)(jnp.asarray(lv_np)))
+    m = torb.orientation_maps(lv).numpy()
+    assert m.shape == m_ref.shape == (2, *lv_np.shape) and m.dtype == np.float32
+    # The moments summed exactly in float64 (the reference's circular patch).
+    r, (h, w) = jorb.HALF_PATCH, lv_np.shape
+    pad = np.pad(lv_np.astype(np.float64), r, mode="edge")
+    exact = np.zeros((2, h, w))
+    for iy, dy in enumerate(range(-r, r + 1)):
+        for dx in range(-jorb._ROW_EXT[iy], jorb._ROW_EXT[iy] + 1):
+            exact[0] += dx * pad[r + dy : r + dy + h, r + dx : r + dx + w]
+            exact[1] += dy * pad[r + dy : r + dy + h, r + dx : r + dx + w]
+    top = np.abs(m_ref).max()
+    np.testing.assert_allclose(m, exact, rtol=0, atol=1e-6 * top)
+    # Against the reference: 1e-5 of the largest moment, beyond the
+    # reference's own f32 prefix-sum error (exact at level 0, where the
+    # pixels are integers; ~1.2e-5 of the largest moment elsewhere).
+    assert np.all(np.abs(m - m_ref) <= np.abs(m_ref - exact) + 1e-5 * top), "tolerance: 1e-5 of the largest moment"
+    if level == 0:
+        np.testing.assert_allclose(m, m_ref, rtol=0, atol=1e-5 * top)
+    xy_t, _, valid = torb.level_keypoints(lv, torb.level_caps(torb.OrbParams(n_features=NF))[level],
+                                          torb.OrbParams(n_features=NF))
+    xy = xy_t.numpy()[valid.numpy()].astype(np.int32)
+    assert len(xy) > 10
+    a_ref = np.asarray(jax.jit(jorb.compute_angles)(jnp.asarray(lv_np), jnp.asarray(xy)))
+    a = torb.compute_angles(lv, torch.from_numpy(xy)).numpy()
+    strong = np.hypot(m_ref[0][xy[:, 1], xy[:, 0]], m_ref[1][xy[:, 1], xy[:, 0]]) >= MIN_MOMENT
+    d = np.abs(np.angle(np.exp(1j * (a.astype(np.float64) - a_ref))))
+    assert strong.sum() > 0.5 * len(xy) and d[strong].max() <= 1e-5, f"tolerance: 1e-5 rad; max {d[strong].max()}"
+    bl = tim.gaussian_blur7(lv)
+    w_ref, b_ref = jax.jit(jorb.compute_descriptors)(jnp.asarray(bl.numpy()), jnp.asarray(xy), jnp.asarray(a_ref))
+    w, b = torb.compute_descriptors(bl, torch.from_numpy(xy), torch.from_numpy(a_ref.copy()))
+    assert np.array_equal(b.numpy(), np.asarray(b_ref)), "tolerance: exact bits"
+    assert np.array_equal(w.numpy().astype(np.uint32), np.asarray(w_ref)), "tolerance: exact words"
+
+
+def test_a_budget_larger_than_the_levels_hold_raises_r19():
+    """ROADMAP R19, in both implementations: `select_keypoints` returns
+    fewer than `cap` slots when a level has fewer than cap / 8 cells of 32 x
+    32, and `extract_orb` then concatenates mis-sized per-level arrays: at
+    320x240, 1000 features overflow levels 6 and 7 and both raise; 900 fit.
+    The port copies the shapes (the smoke's and the tests' trees stay inside
+    them)."""
+    img = np.random.default_rng(0).uniform(0, 255, (240, 320)).astype(np.float32)
+    with pytest.raises(RuntimeError):
+        torb.extract_orb(torch.from_numpy(img), torb.OrbParams(n_features=1000))
+    with pytest.raises(TypeError):
+        jorb.extract_orb_jit(jnp.asarray(img), jorb.OrbParams(n_features=1000))
+    assert len(torb.select_keypoints(torch.ones(67, 89), 91)[0]) == 72, "9 cells x 8 slots at level 7"
+    f = torb.extract_orb(torch.from_numpy(img), torb.OrbParams(n_features=900))
+    assert f.xy.shape == (900, 2)

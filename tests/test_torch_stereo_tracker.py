@@ -299,6 +299,63 @@ def test_rgbd_full_width(impl):
         assert res.rmse <= max(chip_smoke.RGBD_JAX_ATE_M, chip_smoke.RGBD_PORT_ATE_M) + chip_smoke.TOL_LOOP_ATE_M
 
 
+def _noisy_mono():
+    """tests/test_noisy_renders.py's mono sequence: 80 frames of a 0.8 pi arc
+    with noise, blur and exposure jitter."""
+    scene = synthetic.make_ring_scene(seed=11, n_points=900, size_range=(9, 15))
+    n = 80
+    Rs, ts = synthetic.circle_trajectory(n_frames=n, radius=2.5, total_angle=0.8 * np.pi)
+    rng = np.random.default_rng(7)
+    frames = [synthetic.degrade(f, noise_sigma=6.0, blur_sigma=0.7, exposure=float(rng.uniform(0.85, 1.15)),
+                                seed=100 + i) for i, f in enumerate(synthetic.render_sequence(scene, Rs, ts))]
+    return scene, Rs, ts, frames
+
+
+@pytest.mark.slow
+def test_mono_tracks_on_noisy_renders():
+    """The mono half of tests/test_noisy_renders.py on the port, from a cold
+    start, synchronous with loop closing; its gates (state OK, > 80%
+    tracked, scale-aligned ATE < 0.2 m). ROADMAP C3: with the generator's
+    default seed this run loses the map at frame 55."""
+    scene, Rs, ts, frames = _noisy_mono()
+    n = len(frames)
+    K = scene.K
+    trk = tt.Tracker(tt.TrackerConfig(
+        camera=convert.camera_from_numpy(K[0, 0], K[1, 1], K[0, 2], K[1, 2]), width=scene.width, height=scene.height,
+        orb=OrbParams(n_features=1000), async_mapping=False, enable_loop_closing=True,
+    ), "cpu")
+    stamps = np.arange(n) * 0.05
+    tracked = sum(trk.track(f, float(stamps[i])) is not None for i, f in enumerate(frames))
+    assert trk.state == tt.TrackState.OK, trk.state
+    assert tracked > 0.8 * n, tracked
+    ts_est, Twc = trk.export_trajectory()
+    res = ate_rmse(ts_est, Twc[:, :3, 3], stamps, ts)
+    print(f"mono noisy: tracked {tracked}/{n}, {res}")
+    assert res.rmse_scaled < 0.2, res
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("at", [4, 30])
+def test_mono_noisy_renders_from_the_references_state(at):
+    """ROADMAP C3: the reference tracks the noisy mono sequence from a cold
+    start; loaded with the reference's state after frame `at` (4: its
+    initial map), the port tracks the rest within the same gates."""
+    import test_torch_loop_drift as drift
+
+    seq = _noisy_mono()
+    scene, Rs, ts, frames = seq
+    ref = drift.ref_tracker(scene)
+    for i in range(at + 1):
+        ref.track(frames[i], 0.05 * i)
+    trk = drift.loaded("port", seq, drift.snapshot(ref))
+    r = drift.step(trk, seq, len(frames) - 1)
+    ts_est, Twc = r["traj"]
+    res = ate_rmse(ts_est, Twc[:, :3, 3], np.arange(len(frames)) * 0.05, ts)
+    print(f"mono noisy from the reference's state after frame {at}: port {trk.state.name}, {res}")
+    # The loaded tracker exports the frames it tracked, after `at`.
+    assert trk.state == tt.TrackState.OK and len(ts_est) > 0.8 * (len(frames) - at - 1) and res.rmse_scaled < 0.2, res
+
+
 @pytest.mark.slow
 def test_stereo_tracks_metric_on_noisy_renders():
     """The stereo half of tests/test_noisy_renders.py on the port."""

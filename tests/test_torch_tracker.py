@@ -53,7 +53,7 @@ def _one_torch_thread():
 def sequence():
     scene = synthetic.make_scene(seed=3)
     Rs, ts = synthetic.smooth_trajectory(n_frames=N_FRAMES, step=0.12, yaw_rate=0.002)
-    frames = [synthetic.render_frame(scene, Rs[i], ts[i]) for i in range(N_FRAMES)]
+    frames = synthetic.render_sequence(scene, Rs, ts)
     return scene, Rs, ts, frames
 
 
