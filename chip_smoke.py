@@ -7,9 +7,12 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
   1. device  - the card's name and power limit (nvidia-smi);
   2. build   - compile every csrc/*.cu with nvcc for sm_90a, in parallel;
   3. kernel  - each kernel against its plain PyTorch version on the card.
-               Patch gather: every pyramid level of a rendered 752x480 frame
-               with that level's real keypoints, plus border/corner keypoints
-               and N = 1, 127, 129; bitwise equality required. Fused describe
+               Patch gather: all 8 pyramid levels of a rendered 752x480
+               frame with their real keypoints in one launch, plus
+               border/corner keypoints and N = 1, 127, 129 with an empty
+               level, and the one-level entry points; bitwise equality and
+               one launch counted by the wrapper and on the card required;
+               its device time by torch.profiler beside its bound. Fused describe
                (gather + IC angle + steered BRIEF, all 8 levels in one
                launch): the same frame, plus border keypoints, a level
                without keypoints, a flat level and N = 1, 127, 129; angle
@@ -25,9 +28,10 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                first frames are also tracked on the CPU (plain versions) and
                must agree;
   5. per-level path - the describe stage by the earlier route (one
-               patch-gather launch per level, then PyTorch ops) over the
-               first frames, its launches counted and its output held against
-               the fused kernel's;
+               patch-gather launch a frame for all levels, then PyTorch ops)
+               over the first frames, its launches counted (= frames, by the
+               wrapper and on the card), its output held against the fused
+               kernel's, the gather's device time a frame by the profiler;
   6. slam    - monocular SLAM from a cold start on the same ring frames:
                MonoTracker (synchronous mapping) on the card with no seed
                map and no ground-truth pose: two-view initialization, fused
@@ -192,7 +196,9 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                3-14: the paths are host-bound and the host has cores to
                spare) first the fused describe kernel against its plain
                version on a 1241x376 KITTI pyramid with 2,000 features (two
-               waves of blocks) and a 512x512 fisheye pyramid, and
+               waves of blocks) and a 512x512 fisheye pyramid, the batched
+               patch gather bit for bit on both pyramids (2,496 and 1,247
+               slots, one launch each), and
                orb.compute_descriptors (one patch-gather launch) on the card
                against the CPU, bit for bit. Then the ten drivers the shell
                phase does not run, in-process in the default mode, each on a
@@ -224,7 +230,11 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                ATE < 0.12 m on the true camera centres (ROADMAP R20); it
                prints keyframes and landmarks against their caps, loops,
                landmarks removed, ms a frame (median, p99) and the describe
-               launches (= frames).
+               launches (= frames); the covisibility route
+               (native.backend()), keyframe culling by call, candidate and
+               reason with the redundant fractions reached; and after each
+               closed loop its Sim(3) scale and the scale-aligned ATE of the
+               poses exported so far.
 `--profile N` adds a torch.profiler pass over N frames (kernel launches and
 device time per frame, host time per stage) and over the SLAM phase's
 tracked frames and mapping steps, `--compare-routes` a timing of the tracker
@@ -577,14 +587,74 @@ def moment_norm(levels, xys):
     ])
 
 
+def device_us(e):
+    """A profiler event's own device time (us), under either attribute name."""
+    return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
+
+
+def profiled(fns, calls=30):
+    """{key: (device us a launch, launches a round)} of the kernels whose
+    names hold each key, by one torch.profiler session over `calls` rounds
+    of calling every fn of `fns` ({key: fn}) once each."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            for fn in fns.values():
+                fn()
+        torch.cuda.synchronize()
+    out = {}
+    for key in fns:
+        evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and key in e.key]
+        n = sum(e.count for e in evs)
+        out[key] = (sum(device_us(e) for e in evs) / max(n, 1), n / calls)
+    return out
+
+
+def hold_gather(name, levels, blurred, xys):
+    """One batched gather launch over `levels` against the plain version,
+    bit for bit, and the host and card counts of that launch. Returns the
+    largest absolute difference (0.0 when equal)."""
+    import torch
+
+    from orbslam3_cpp_fork_tpu_torch.ops import patches
+
+    counter = patches.gather_counter(levels[0].device)
+    torch.cuda.synchronize()
+    counter.zero_()
+    n0 = patches.launches
+    got = patches.extract_patches_levels(levels, blurred, xys)
+    torch.cuda.synchronize()
+    host, card = patches.launches - n0, int(counter)
+    ref = torch.stack([torch.cat([patches._gather_plain(im, xy) for im, xy in zip(imgs, xys)])
+                       for imgs in (levels, blurred)])
+    err = float((got - ref).abs().max()) if ref.numel() else 0.0
+    log(f"kernel: patch_gather on {name}: {ref.shape[1]} slots over {len(levels)} levels "
+        f"({[int(xy.shape[0]) for xy in xys]}), launches {host} by the wrapper, {card} on the card; bitwise equal to "
+        f"the plain version: {torch.equal(got, ref)} (max abs err {err})")
+    if got.shape != ref.shape or not torch.equal(got, ref):
+        fail(f"patch_gather differs from the plain version on {name}: max abs err {err}")
+    if host != 1 or card != 1:
+        fail(f"patch_gather on {name}: {host} launches by the wrapper, {card} on the card (1 expected)")
+    return err
+
+
 def phase_kernel_gather(dev, inputs):
-    """Patch gather vs plain at the main path's 8 level shapes and edge cases."""
+    """Patch gather vs plain: all 8 levels of the main path's frame in one
+    launch, edge cases (border keypoints, N = 1, 127, 129, an empty level),
+    the one-level entry points; then its time, the plain version's and its
+    device time by the profiler, per frame."""
     import torch
 
     from orbslam3_cpp_fork_tpu_torch.ops import patches
 
     levels, blurred, xys, _ = inputs
-    cases = [(f"level{l}", levels[l], blurred[l], xys[l]) for l in range(len(levels))]
+    max_err = hold_gather("the frame's 8 levels", levels, blurred, xys)
     h, w = levels[0].shape
     border = torch.tensor(
         [[0, 0], [w - 1, 0], [0, h - 1], [w - 1, h - 1], [w // 2, 0], [w // 2, h - 1],
@@ -592,39 +662,66 @@ def phase_kernel_gather(dev, inputs):
         dtype=torch.int32,
     ).to(dev)
     g = torch.Generator().manual_seed(0)
+
+    def random_xy(n, hw):
+        return torch.stack([torch.randint(-20, hw[1] + 20, (n,), generator=g),
+                            torch.randint(-20, hw[0] + 20, (n,), generator=g)], 1).to(torch.int32).to(dev)
+
+    none = torch.zeros((0, 2), dtype=torch.int32, device=dev)
     for n in (1, 127, 129):
-        xy = torch.stack(
-            [torch.randint(-20, w + 20, (n,), generator=g), torch.randint(-20, h + 20, (n,), generator=g)], 1
-        ).to(torch.int32).to(dev)
-        cases.append((f"n{n}", cases[0][1], cases[0][2], xy))
-    cases.append(("border", cases[0][1], cases[0][2], border))
+        # Level 1 has no keypoints, level 7 has n: the slot-to-level search
+        # must skip the empty level and reach the last one.
+        kp = [random_xy(n, levels[0].shape), none] + [random_xy(7, lv.shape) for lv in levels[2:7]] + [
+            random_xy(n, levels[7].shape)]
+        max_err = max(max_err, hold_gather(f"n{n} with an empty level", levels, blurred, kp))
+    max_err = max(max_err, hold_gather("border keypoints", levels[:1], blurred[:1], [border]))
+    # The one-level entry points launch the same kernel.
+    n0 = patches.launches
+    pa, pb = patches.extract_patches_dual(levels[0], blurred[0], border)
+    p1 = patches.extract_patches(blurred[3], xys[3])
+    torch.cuda.synchronize()
+    if not (torch.equal(pa, patches._gather_plain(levels[0], border))
+            and torch.equal(pb, patches._gather_plain(blurred[0], border))
+            and torch.equal(p1, patches._gather_plain(blurred[3], xys[3])) and patches.launches - n0 == 2):
+        fail("extract_patches_dual / extract_patches differ from the plain version or did not launch once each")
+    log("kernel: extract_patches_dual and extract_patches: one launch each, bitwise equal to the plain version")
 
-    max_err = 0.0
-    for name, a, b, xy in cases:
-        pa, pb = patches.extract_patches_dual(a, b, xy)
-        torch.cuda.synchronize()
-        ra, rb = patches._gather_plain(a, xy), patches._gather_plain(b, xy)
-        err = max(float((pa - ra).abs().max()), float((pb - rb).abs().max())) if xy.shape[0] else 0.0
-        if not (torch.equal(pa, ra) and torch.equal(pb, rb)):
-            fail(f"patch_gather differs from the plain version on {name}: max abs err {err}")
-        max_err = max(max_err, err)
-    log(f"kernel: patch_gather == plain bitwise on {len(cases)} cases "
-        f"({', '.join(c[0] for c in cases)}); max_abs_err {max_err}")
+    def plain():
+        return [torch.cat([patches._gather_plain(im, xy) for im, xy in zip(imgs, xys)]) for imgs in (levels, blurred)]
 
-    ms = plain_ms = 0.0
-    for name, a, b, xy in cases[:N_LEVELS]:
-        k = cuda_ms(lambda: patches.extract_patches_dual(a, b, xy))
-        p = cuda_ms(lambda: (patches._gather_plain(a, xy), patches._gather_plain(b, xy)))
-        log(f"kernel: {name} {tuple(a.shape)} N={xy.shape[0]}: kernel {k:.4f} ms, plain {p:.4f} ms")
-        ms += k
-        plain_ms += p
-    log(f"kernel: patch_gather per frame (8 levels): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    ms = cuda_ms(lambda: patches.extract_patches_levels(levels, blurred, xys))
+    plain_ms = cuda_ms(plain)
     m = sum(int(xy.shape[0]) for xy in xys)
     n_bytes = sum(2 * 4 * lvl.numel() for lvl in levels) + 8 * m + 2 * m * 1600 * 4
     bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3  # a copy: no arithmetic
+    log(f"kernel: patch_gather per frame ({m} slots, 8 levels, 1 launch): kernel with its wrapper {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms")
     log(f"kernel: patch_gather bound: {n_bytes} bytes (each level and blurred level read once, {m} x 2 patches "
-        f"written) / {HBM_BYTES_PER_S:.3g} B/s = {bound_ms:.6f} ms per frame; kernel at {bound_ms / ms:.2%} of it")
-    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes")
+        f"written) / {HBM_BYTES_PER_S:.3g} B/s = {bound_ms:.6f} ms per frame; with its wrapper at "
+        f"{bound_ms / ms:.2%} of it")
+    # The pyramids were just written and fit in the 50 MB L2: read from
+    # there, only the keypoints and the patches cross HBM.
+    l2_bound_ms = (8 * m + 2 * m * 1600 * 4) / HBM_BYTES_PER_S * 1e3
+    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
+                l2_bound_ms=l2_bound_ms)
+
+
+def phase_kernel_profile(dev, inputs, gather, describe):
+    """Device time of both kernels on the main path's frame, by one
+    torch.profiler session, beside their bounds; stored as `device_us` in
+    the kernel phases' results."""
+    from orbslam3_cpp_fork_tpu_torch.ops import patches
+
+    levels, blurred, xys, _ = inputs
+    t = profiled({"patch_gather": lambda: patches.extract_patches_levels(levels, blurred, xys),
+                  "orb_describe": lambda: patches.describe_keypoints(levels, blurred, xys)})
+    for name, res in (("patch_gather", gather), ("orb_describe", describe)):
+        us, per_call = t[name]
+        res["device_us"] = us
+        log(f"kernel: {name} device time (profiler) {us:.3f} us a launch, {per_call:.2f} launches a call; at "
+            f"{res['bound_ms'] * 1e3 / us:.2%} of its bound ({res['bound_ms'] * 1e3:.3f} us)"
+            + (f", at {res['l2_bound_ms'] * 1e3 / us:.2%} of the bound with the pyramids resident in L2 "
+               f"({res['l2_bound_ms'] * 1e3:.3f} us: keypoints read, patches written)" if "l2_bound_ms" in res else ""))
 
 
 def hold_describe(name, lv, bl, kp, gate, flat_tail=False):
@@ -704,7 +801,7 @@ def phase_kernel_describe(dev, inputs):
     ms, plain_ms, per_level_ms = (sum(t[k]) / len(t[k]) for k in ("fused", "plain", "per_level"))
     m = sum(int(xy.shape[0]) for xy in xys)
     log(f"kernel: orb_describe per frame ({m} slots, 8 levels): fused kernel (1 launch) {ms:.4f} ms "
-        f"{t['fused']}; plain {plain_ms:.4f} ms; per-level route (8 gather launches + PyTorch ops) "
+        f"{t['fused']}; plain {plain_ms:.4f} ms; per-level route (1 gather launch + PyTorch ops) "
         f"{per_level_ms:.4f} ms {t['per_level']}")
     pairs = patches._device_tables(dev)[3]
     n_bytes = (sum(2 * 4 * lvl.numel() for lvl in levels) + 8 * m + pairs.numel() * 2
@@ -826,19 +923,22 @@ def phase_main(dev, make, ts, frames, n_check, gate_ate):
 
 
 def phase_per_level_path(dev, frames, orb_params):
-    """The describe stage by the earlier route on the first frames: 8
-    patch-gather launches a frame, then PyTorch ops; held against the fused
-    kernel on the same inputs."""
+    """The describe stage by the earlier route on the first frames: one
+    patch-gather launch a frame for all 8 levels, then PyTorch ops; held
+    against the fused kernel on the same inputs. Returns (launches, device
+    us of the gather kernel a frame by the profiler)."""
     import torch
 
     from orbslam3_cpp_fork_tpu_torch.ops import patches
 
     inputs = [frame_levels(dev, f, orb_params) for f in frames]
+    counter = patches.gather_counter(dev)
     torch.cuda.synchronize()
+    counter.zero_()
     patches.launches = 0
     outs = [patches.describe_keypoints_per_level(lv, bl, kp) for lv, bl, kp, _ in inputs]
     torch.cuda.synchronize()
-    launches = patches.launches
+    launches, card = patches.launches, int(counter)
     worst, bins_all, slots = 0.0, 0, 0
     for (lv, bl, kp, valid), got in zip(inputs, outs):
         fused = patches.describe_keypoints(lv, bl, kp)
@@ -848,12 +948,20 @@ def phase_per_level_path(dev, frames, orb_params):
             fail(f"per-level route and fused kernel disagree: angle {err} rad, {bad_bits} bits on equal bins, "
                  f"{bins_gated} gated slots in another bin")
         worst, bins_all, slots = max(worst, err), bins_all + bins, slots + n
-    log(f"per-level path: {len(frames)} frames, patch_gather launches {launches} (>= {N_LEVELS} x {len(frames)} "
-        f"required); vs fused kernel: max angle err {worst:.3e} rad, differing bins {bins_all} of {slots} slots, "
-        f"0 differing bits on equal bins")
-    if launches < N_LEVELS * len(frames):
-        fail(f"patch_gather launched {launches} times for {len(frames)} frames")
-    return launches
+
+    def all_frames():
+        for lv, bl, kp, _ in inputs:
+            patches.describe_keypoints_per_level(lv, bl, kp)
+
+    # The 12 frames' pyramids (~107 MB) do not all stay in L2.
+    gather_us, per_call = profiled({"patch_gather": all_frames}, calls=1)["patch_gather"]
+    log(f"per-level path: {len(frames)} frames, patch_gather launches {launches} by the wrapper, {card} on the card "
+        f"(= {len(frames)} required); vs fused kernel: max angle err {worst:.3e} rad, differing bins {bins_all} of "
+        f"{slots} slots, 0 differing bits on equal bins; gather device time (profiler) {gather_us:.3f} us a launch "
+        f"(one a frame; {per_call:.0f} launches profiled)")
+    if launches != len(frames) or card != len(frames):
+        fail(f"patch_gather launched {launches} times by the wrapper, {card} on the card, for {len(frames)} frames")
+    return launches, gather_us
 
 
 def make_slam_tracker(dev, scene, orb_params):
@@ -2787,9 +2895,10 @@ def write_driver_tree(root, name, sc):
 
 
 def driver_describe_checks(dev):
-    """The fused describe kernel against its plain version on the new
-    pyramids (a KITTI frame at 1241x376 with 2,000 features, two waves of
-    blocks; a 512x512 fisheye frame), and `orb.compute_descriptors` (the
+    """The fused describe kernel and the batched patch gather against their
+    plain versions on the new pyramids (a KITTI frame at 1241x376 with 2,000
+    features, two waves of blocks; a 512x512 fisheye frame), and
+    `orb.compute_descriptors` (the
     patch-gather kernel, one launch a call) on the card against the same
     call on the CPU. Returns (max angle error, compute_descriptors
     launches)."""
@@ -2806,6 +2915,7 @@ def driver_describe_checks(dev):
         levels = frame_levels(dev, f0, OrbParams(n_features=feats))
         kitti = kitti or levels
         err = max(err, hold_describe(f"{name}'s {f0.shape[1]}x{f0.shape[0]} pyramid, {feats} features", *levels))
+        hold_gather(f"{name}'s {f0.shape[1]}x{f0.shape[0]} pyramid, {feats} features", *levels[:3])
     # compute_descriptors on level 0 of the KITTI frame, angles from the
     # CPU (the same bins on both sides): bits exact.
     lv, bl, kp, valid = kitti
@@ -2924,9 +3034,103 @@ def long_config(scene):
                          enable_loop_closing=True)
 
 
-def phase_long(dev, n_frames, gate):
+def covisibility_rows_differ(m):
+    """Live keyframes whose covisibility row (`MapState.covisibility_weights`,
+    the native graph where it is built) differs from the dense product of
+    the live rows of `obs`."""
+    import numpy as np
+
+    live = np.nonzero(m.kf_valid)[0]
+    obs = m.obs[live].astype(np.float32)
+    dense = (obs @ obs.T).astype(np.int64)
+    np.fill_diagonal(dense, 0)
+    return sum(not np.array_equal(m.covisibility_weights(int(k)).astype(np.int64)[live], dense[i])
+               for i, k in enumerate(live))
+
+
+def drive_long(trk, scene, stamps, Rs, ts):
+    """Track the long phase's frames. Just before every keyframe cull, counts
+    the live keyframes whose covisibility row differs from the dense
+    product (the cull's first step queries the same rows, so the check moves
+    no decision). After every frame that closed a loop, records the loop's
+    Sim(3) scale and the scale-aligned ATE of the poses exported so far
+    (ROADMAP C4's split). Returns (frames tracked, ms a frame, those records,
+    the differing rows of every cull call)."""
+    from orbslam3_cpp_fork_tpu_torch.utils.evaluation import ate_rmse
+
+    n_tracked, ms, after_loop, differ = 0, [], [], []
+    real_cull = trk._cull_keyframes
+
+    def cull(k):
+        differ.append(covisibility_rows_differ(trk.map))
+        return real_cull(k)
+
+    trk._cull_keyframes = cull
+    try:
+        for i, img in enumerate(long_frames(scene, Rs, ts)):
+            t1 = time.perf_counter()
+            if trk.track(img, float(stamps[i])) is not None:
+                n_tracked += 1
+            ms.append(1e3 * (time.perf_counter() - t1))
+            loops = [e for e in trk.loop_closer.events if e["kind"] == "loop"]
+            if len(loops) > len(after_loop):
+                ts_est, Twc = trk.export_trajectory()  # synchronous: nothing in flight
+                ate = ate_rmse(ts_est, Twc[:, :3, 3], stamps, ts)
+                after_loop += [dict(frame=i, kf=int(ev["kf"]), match=int(ev["match"]), sim3_scale=float(ev["scale"]),
+                                    ate=ate.rmse_scaled, align_scale=float(ate.scale)) for ev in loops[len(after_loop):]]
+    finally:
+        del trk._cull_keyframes
+    return n_tracked, ms, after_loop, differ
+
+
+def cull_report(name, trk):
+    """Log the tracker's keyframe-culling counts (`Tracker.cull_stats`) and
+    the covisibility route; returns them as a dict."""
+    import dataclasses
+
+    import numpy as np
+
+    from orbslam3_cpp_fork_tpu_torch import native
+
+    st = trk.cull_stats
+    r = np.asarray(st.redundancy, np.float64)
+    rep = {k: v for k, v in dataclasses.asdict(st).items() if k != "redundancy"}
+    rep.update(backend=native.backend(), redundancy_max=float(r.max(initial=0.0)),
+               redundancy_median=float(np.median(r)) if len(r) else 0.0,
+               redundancy_at_least_0_8=int((r >= 0.8).sum()), redundancy_at_least_0_9=int((r >= 0.9).sum()))
+    log(f"{name}: mapgraph backend: {rep['backend']}")
+    log(f"{name}: keyframe culling: {st.calls} calls, {st.culled} keyframes culled; valid keyframes below weight 15 "
+        f"(never candidates) {st.not_neighbour}; candidates {st.candidates}: protected {st.protected}, inertial gap "
+        f"{st.inertial_gap}, < 10 landmarks {st.few_landmarks}, redundancy below the bar {st.below_redundancy}, "
+        f"left at the call's bound {st.max_cull}, culled {st.culled}; redundant fraction over {len(r)} candidates: "
+        f"max {rep['redundancy_max']:.4f}, median {rep['redundancy_median']:.4f}, >= 0.8: "
+        f"{rep['redundancy_at_least_0_8']}, >= 0.9: {rep['redundancy_at_least_0_9']}")
+    return rep
+
+
+def save_cull_state(trk, path):
+    """What keyframe culling reads of the tracker's map, compact: the live
+    keyframes' slots, landmark ids, levels, frame ids and `obs` rows (bit
+    packed), the landmarks' validity (bit packed), the reference keyframe,
+    the capacities and the card it ran on (tests/test_torch_cull_state.py)."""
+    import numpy as np
+
+    m = trk.map
+    live = np.nonzero(m.kf_valid)[0]
+    np.savez_compressed(
+        path, slots=live.astype(np.int16), kf_lm_idx=m.kf_lm_idx[live].astype(np.int16),
+        kf_level=m.kf_level[live].astype(np.int8), kf_frame_id=m.kf_frame_id[live],
+        obs=np.packbits(m.obs[live], axis=1), lm_valid=np.packbits(m.lm_valid), ref_kf=trk.ref_kf,
+        n_kf_inserted=trk.n_kf_inserted, max_keyframes=m.cfg.max_keyframes, max_landmarks=m.cfg.max_landmarks,
+        n_features=m.cfg.n_features, card=card_line(),
+    )
+    log(f"long: the final map's cull inputs written to {path}")
+
+
+def phase_long(dev, n_frames, gate, long_state=None):
     """tests/test_long_sequence.py's 560 frames on the card (module
-    docstring)."""
+    docstring); with `long_state`, the final map's cull inputs are written
+    there (`save_cull_state`)."""
     import numpy as np
 
     from orbslam3_cpp_fork_tpu_torch.runtime.tracker import Tracker, TrackState
@@ -2943,24 +3147,29 @@ def phase_long(dev, n_frames, gate):
 
     trk.map.remove_landmarks = remove_landmarks
     read = counted(dev)
-    n_tracked, ms = 0, []
     t0 = time.perf_counter()
-    for i, img in enumerate(long_frames(scene, Rs, ts)):
-        t1 = time.perf_counter()
-        if trk.track(img, float(stamps[i])) is not None:
-            n_tracked += 1
-        ms.append(1e3 * (time.perf_counter() - t1))
+    n_tracked, ms, after_loop, differ = drive_long(trk, scene, stamps, Rs, ts)
     secs = time.perf_counter() - t0
     cnt, host = read()
     m = trk.map
     ts_est, Twc = trk.export_trajectory()
     ate = ate_rmse(ts_est, Twc[:, :3, 3], stamps, ts)
     loops, gbas = loop_report("long", trk, Rs, ts)
+    for rec in after_loop:
+        log(f"long: after the loop at frame {rec['frame']} (keyframe {rec['kf']} -> {rec['match']}, Sim(3) scale "
+            f"{rec['sim3_scale']:.4f}): scale-aligned ATE of the poses exported so far {rec['ate']:.6f} m (alignment "
+            f"scale {rec['align_scale']:.4f})")
+    culls = cull_report("long", trk)
+    log(f"long: covisibility rows that differ from the dense obs @ obs.T just before a cull: "
+        f"{sum(differ)} over {len(differ)} cull calls")
+    if long_state:
+        save_cull_state(trk, long_state)
     n_kf, n_lm = m.n_keyframes(), m.n_landmarks()
     report = dict(frames=n_frames, tracked=n_tracked, exported=len(ts_est), keyframes=n_kf,
                   keyframes_inserted=int(trk.n_kf_inserted), landmarks=n_lm, loops=int(trk.loop_closer.n_loops_closed),
                   landmarks_removed=removed[0], ate=ate.rmse_scaled, scale=ate.scale, launches=cnt,
-                  ms_median=float(np.median(ms)), ms_p99=float(np.percentile(ms, 99)), seconds=secs)
+                  ms_median=float(np.median(ms)), ms_p99=float(np.percentile(ms, 99)), seconds=secs,
+                  after_loop=after_loop, culls=culls, covisibility_rows_differ=sum(differ))
     log(f"long ({n_frames} noisy frames at 640x480, {LONG_FEATURES} features, synchronous, loop closing on): state "
         f"{trk.state.name}; tracked {n_tracked}/{n_frames} (> {LONG_MIN_TRACKED} required); keyframes {n_kf} alive of "
         f"{trk.n_kf_inserted} inserted (cap {m.cfg.max_keyframes}; < {LONG_MAX_KF_FRAC} x frames required), landmarks "
@@ -2971,6 +3180,8 @@ def phase_long(dev, n_frames, gate):
         f"clock); describe launches {cnt}")
     if cnt != n_frames or host != n_frames:
         fail(f"long: orb_describe ran {cnt} times on the card ({host} by the wrapper) for {n_frames} frames")
+    if sum(differ):
+        fail(f"long: the covisibility graph's rows differ from the dense product in {sum(differ)} cases")
     if not np.isfinite(m.lm_pos[m.lm_valid]).all():
         fail("long: the map is not finite")
     if gate:
@@ -3121,9 +3332,6 @@ def phase_profile_slam(dev, scene, frames, orb_params):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
-
     trk = make_slam_tracker(dev, scene, orb_params)
     acc = {False: [0, 0, 0.0], True: [0, 0, 0.0]}  # keyframe frame? -> [frames, kernels, device us]
     by_kernel: dict[str, list] = {}  # keyframe frames only: kernel name -> [launches, device us]
@@ -3141,12 +3349,12 @@ def phase_profile_slam(dev, scene, frames, orb_params):
         a = acc[is_kf]
         a[0] += 1
         a[1] += sum(e.count for e in ks)
-        a[2] += sum(dev_us(e) for e in ks)
+        a[2] += sum(device_us(e) for e in ks)
         if is_kf:
             for e in ks:
                 b = by_kernel.setdefault(e.key, [0, 0.0])
                 b[0] += e.count
-                b[1] += dev_us(e)
+                b[1] += device_us(e)
     (nt, kt, ut), (nk, kk, uk) = acc[False], acc[True]
     if nt:
         log(f"profile: slam: tracked frame without a keyframe ({nt}): {kt / nt:.1f} kernel launches, "
@@ -3170,9 +3378,6 @@ def phase_profile(dev, make, frames, orb_params, n):
     from orbslam3_cpp_fork_tpu_torch.ops import camera, matching, orb, patches
     from orbslam3_cpp_fork_tpu_torch.optim import pose_opt
     from orbslam3_cpp_fork_tpu_torch.runtime import device_step
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
 
     def kernels(prof):
         # Device-side events that are kernels: not copies, not the mirrored
@@ -3207,12 +3412,12 @@ def phase_profile(dev, make, frames, orb_params, n):
             setattr(m, k, fn)
     ks = kernels(prof)
     count = sum(e.count for e in ks)
-    total = sum(dev_us(e) for e in ks)
+    total = sum(device_us(e) for e in ks)
     log(f"profile: {n} frames: {count / n:.1f} kernel launches per frame, {total / n / 1e3:.3f} ms of device "
         f"time per frame")
     for e in ks:
         if "orb_describe" in e.key or "patch_gather" in e.key:
-            log(f"profile: kernel {e.key[:60]}: {e.count} launches, {dev_us(e) / e.count:.2f} us of device time each")
+            log(f"profile: kernel {e.key[:60]}: {e.count} launches, {device_us(e) / e.count:.2f} us of device time each")
     for e in prof.key_averages():
         if e.key.startswith("stage:") and e.device_type == DeviceType.CPU:
             log(f"profile: host {e.key}: {e.cpu_time_total / n / 1e3:.3f} ms per frame over {e.count / n:.1f} calls "
@@ -3227,7 +3432,7 @@ def phase_profile(dev, make, frames, orb_params, n):
             torch.cuda.synchronize()
         ks = kernels(prof)
         log(f"profile: one describe call by the {name} route: {sum(e.count for e in ks) / calls:.2f} kernel "
-            f"launches, {sum(dev_us(e) for e in ks) / calls:.2f} us of device time ({calls} calls)")
+            f"launches, {sum(device_us(e) for e in ks) / calls:.2f} us of device time ({calls} calls)")
 
 
 def phase_compare_routes(dev, make, frames, block=10):
@@ -3262,7 +3467,7 @@ def phase_compare_routes(dev, make, frames, block=10):
             f"(alternating blocks of {block})")
 
 
-def parallel_part(dev, frames):
+def parallel_part(dev, frames, long_state=None):
     """The drivers and long phases: run in a process of their own, beside
     the other phases (the paths are host-bound and the host has cores to
     spare); the last line of output is their record."""
@@ -3271,7 +3476,7 @@ def parallel_part(dev, frames):
     drivers_launches, drivers_err, cd_launches, drivers = phase_drivers(dev, gate_ate=gate)
     log(f"smoke: drivers phase {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    long_launches, long_report = phase_long(dev, LONG_FRAMES if gate else min(frames, LONG_FRAMES), gate)
+    long_launches, long_report = phase_long(dev, LONG_FRAMES if gate else min(frames, LONG_FRAMES), gate, long_state)
     log(f"smoke: long phase {time.perf_counter() - t0:.1f} s")
     log(json.dumps({"parallel": {
         "launches_drivers": drivers_launches, "launches_long": long_launches, "describe_err": drivers_err,
@@ -3279,15 +3484,16 @@ def parallel_part(dev, frames):
     }}))
 
 
-def start_parallel_part(frames):
+def start_parallel_part(frames, long_state=None):
     """Start `parallel_part` in a child process (output in temporary files;
     killed at exit if still running)."""
     import atexit
     import tempfile
 
     out, err = tempfile.TemporaryFile(mode="w+"), tempfile.TemporaryFile(mode="w+")
-    proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--parallel-part", "--frames", str(frames)],
-                            stdout=out, stderr=err, text=True)
+    extra = ["--long-state", long_state] if long_state else []
+    proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--parallel-part", "--frames", str(frames),
+                             *extra], stdout=out, stderr=err, text=True)
 
     def stop():
         if proc.poll() is None:
@@ -3329,6 +3535,9 @@ def main(argv=None) -> int:
                     help="also time the tracker with the describe stage by either route, in alternating blocks")
     ap.add_argument("--parallel-part", action="store_true",
                     help="run only the drivers and long phases (the smoke runs them so, in a child process)")
+    ap.add_argument("--long-state", metavar="PATH",
+                    help="also write what keyframe culling reads of the long run's final map to PATH (.npz; "
+                         "tests/data/long_card_cull_state.npz was written so)")
     args = ap.parse_args(argv)
 
     import torch
@@ -3349,7 +3558,7 @@ def main(argv=None) -> int:
         dev = get_device()
         for name in _kernels.build_all():  # built already by the parent: loaded
             _kernels.load(name)
-        parallel_part(dev, args.frames)
+        parallel_part(dev, args.frames, args.long_state)
         return 0
     card = card_line()
     log(f"device: {card}")
@@ -3366,7 +3575,7 @@ def main(argv=None) -> int:
         for line in ptxas.strip().splitlines():
             log(f"build: {name}: {line.strip()}")
 
-    child = start_parallel_part(args.frames)
+    child = start_parallel_part(args.frames, args.long_state)
     laps = [time.perf_counter()]
 
     def lap(name):
@@ -3378,11 +3587,12 @@ def main(argv=None) -> int:
     inputs = frame_levels(dev, frames[0], orb_params)
     gather = phase_kernel_gather(dev, inputs)
     describe = phase_kernel_describe(dev, inputs)
+    phase_kernel_profile(dev, inputs, gather, describe)
     make = make_tracker_factory(dev, scene, Rs, ts, orb_params, CAPACITY, KF_EVERY)
     describe_launches = phase_main(
         dev, make, ts, frames, min(CPU_CHECK, args.frames), gate_ate=args.frames == FRAMES
     )
-    gather_launches = phase_per_level_path(dev, frames[: min(PER_LEVEL_FRAMES, args.frames)], orb_params)
+    gather_launches, per_level_us = phase_per_level_path(dev, frames[: min(PER_LEVEL_FRAMES, args.frames)], orb_params)
     lap("kernel, main and per-level")
     slam_launches, slam = phase_slam(dev, scene, ts, frames, orb_params, gate_ate=args.frames == FRAMES)
     async_launches = phase_async(dev, scene, ts, frames, orb_params, slam, gate_ate=args.frames == FRAMES)
@@ -3445,12 +3655,13 @@ def main(argv=None) -> int:
             # No single PyTorch call gathers windows, sums moments and
             # compares rotated pixel pairs.
             "library_ms": None,
+            "device_us": describe["device_us"],
             "per_level_route_ms": describe["per_level_ms"],
         },
         {
             "name": "patch_gather_dual", "route": "cuda",
             "source": "orbslam3_cpp_fork_tpu_torch/csrc/patch_gather.cu", "replaces": tpu_kernel,
-            # 8 a frame of the per-level route; 1 a call of
+            # 1 a frame of the per-level route (all 8 levels); 1 a call of
             # orb.compute_descriptors (the drivers phase's process).
             "launches": gather_launches + par["launches_compute_descriptors"],
             "launches_per_level": gather_launches,
@@ -3461,6 +3672,7 @@ def main(argv=None) -> int:
             # The plain version is ~10 clamps and an advanced-indexing read;
             # no single PyTorch call gathers clamped windows.
             "library_ms": None,
+            "device_us": gather["device_us"], "per_level_device_us": per_level_us,
         },
     ]}
     log(f"smoke: {time.perf_counter() - t_smoke:.1f} s in all")

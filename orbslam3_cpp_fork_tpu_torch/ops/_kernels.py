@@ -87,7 +87,7 @@ def load(name: str) -> ctypes.CDLL:
 def patch_gather_fn():
     """ctypes handle of `patch_gather` (csrc/patch_gather.cu)."""
     fn = load("patch_gather").patch_gather
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.POINTER(LevelTable)] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -97,9 +97,10 @@ MAX_LEVELS = 8
 
 class LevelTable(ctypes.Structure):
     """Per-level pointers, shapes and keypoint start offsets of one
-    `orb_describe` launch; mirrors `struct LevelTable` of
-    csrc/orb_describe.cu field for field. It is a launch argument, so
-    nothing is uploaded when the level buffers change from frame to frame."""
+    `orb_describe` or `patch_gather` launch; mirrors `struct LevelTable` of
+    csrc/orb_describe.cu and csrc/patch_gather.cu field for field. It is a
+    launch argument, so nothing is uploaded when the level buffers change
+    from frame to frame."""
 
     _fields_ = [
         ("raw", ctypes.c_void_p * MAX_LEVELS),

@@ -5,7 +5,9 @@ and turns the windows into orientations and descriptors with two matmuls.
 Here the gather is the hand-written CUDA kernel `csrc/patch_gather.cu` on
 CUDA tensors and its plain PyTorch version (clamped index grids, advanced
 indexing) on CPU tensors. The two are bitwise equal: both only copy f32
-values.
+values. `extract_patches_levels` gathers every pyramid level in one launch;
+`extract_patches` and `extract_patches_dual` launch the same kernel with a
+one-level table.
 
 `describe_keypoints` is what the extractor calls: keypoints of all pyramid
 levels -> angles, BRIEF bits and packed words. On CUDA tensors it is one
@@ -41,7 +43,8 @@ PATCH_COLS = 40
 N_ANGLE_BINS = 30  # 12-degree bins, as in the ORB paper's pattern LUTs
 
 # Number of patch-gather kernel launches in this process (CUDA tensors
-# only; the plain CPU version does not count).
+# only; the plain CPU version does not count). The kernel also counts on
+# the card: see `gather_counter`.
 launches = 0
 _gather_fn = None
 # Number of fused describe-kernel launches this process made (host side).
@@ -76,26 +79,58 @@ def _gather_plain(img: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
     return img[rows[:, :, None], cols[:, None, :]]
 
 
-def _gather_cuda(imgs: list[torch.Tensor], xy: torch.Tensor) -> torch.Tensor:
-    """Launch csrc/patch_gather.cu: (len(imgs), N, 40, 40)."""
+@functools.lru_cache(maxsize=None)
+def gather_counter(device: torch.device) -> torch.Tensor:
+    """The card's own count of patch-gather launches, a (1,) int64 tensor on
+    `device` (as `describe_counter` for the fused kernel)."""
+    return torch.zeros(1, dtype=torch.int64, device=device)
+
+
+def _gather_cuda(levels, blurred, xys) -> torch.Tensor:
+    """Launch csrc/patch_gather.cu once for every level: (2, M, 40, 40), or
+    (1, M, 40, 40) when `blurred` is None, levels concatenated in order."""
     global launches, _gather_fn
     if _gather_fn is None:
         _gather_fn = _kernels.patch_gather_fn()
-    h, w = imgs[0].shape
-    n = xy.shape[0]
-    out = torch.empty((len(imgs), n, PATCH_ROWS, PATCH_COLS), dtype=torch.float32, device=xy.device)
-    if n == 0:
+    dev = xys[0].device
+    xy = torch.cat(xys) if len(xys) > 1 else xys[0]
+    m = xy.shape[0]
+    n_images = 1 if blurred is None else 2
+    out = torch.empty((n_images, m, PATCH_ROWS, PATCH_COLS), dtype=torch.float32, device=dev)
+    if m == 0:
         return out
-    with torch.cuda.device(xy.device):
-        stream = torch.cuda.current_stream(xy.device).cuda_stream
+    if out.data_ptr() % 16:
+        raise RuntimeError("patch_gather writes 16-byte vectors: the output is not 16-byte aligned")
+    table = _kernels.LevelTable()
+    table.n_levels = len(levels)
+    start = 0
+    for l, (lvl, kp) in enumerate(zip(levels, xys)):
+        table.raw[l] = lvl.data_ptr()
+        table.blur[l] = (lvl if blurred is None else blurred[l]).data_ptr()
+        table.h[l], table.w[l] = lvl.shape
+        table.start[l] = start
+        start += kp.shape[0]
+    table.start[len(levels)] = start
+    # As in `_describe_cuda`: the caching allocator keeps `xy` and the level
+    # buffers for work queued on this stream.
+    with torch.cuda.device(dev):
         err = _gather_fn(
-            imgs[0].data_ptr(), imgs[-1].data_ptr(), xy.data_ptr(), out.data_ptr(),
-            n, h, w, len(imgs), stream,
+            table, xy.data_ptr(), out.data_ptr(), gather_counter(dev).data_ptr(), m, n_images,
+            torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"patch_gather launch failed: cudaError {err}")
     launches += 1
     return out
+
+
+def _check_level_args(levels, blurred, xys) -> None:
+    if not (0 < len(levels) == len(blurred) == len(xys) <= _kernels.MAX_LEVELS):
+        raise ValueError(f"need 1..{_kernels.MAX_LEVELS} levels, as many blurred copies and keypoint sets")
+    for lvl, blur, xy in zip(levels, blurred, xys):
+        _check_gather_args([lvl, blur], xy)
+        if xy.device != xys[0].device:
+            raise ValueError("all levels must lie on one device")
 
 
 def extract_patches(img: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
@@ -104,7 +139,7 @@ def extract_patches(img: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
     the image first)."""
     _check_gather_args([img], xy)
     if xy.device.type == "cuda":
-        return _gather_cuda([img], xy)[0]
+        return _gather_cuda([img], None, [xy])[0]
     return _gather_plain(img, xy)
 
 
@@ -115,9 +150,24 @@ def extract_patches_dual(
     orientation, blurred for BRIEF), one kernel launch on CUDA."""
     _check_gather_args([img_a, img_b], xy)
     if xy.device.type == "cuda":
-        both = _gather_cuda([img_a, img_b], xy)
+        both = _gather_cuda([img_a], [img_b], [xy])
         return both[0], both[1]
     return _gather_plain(img_a, xy), _gather_plain(img_b, xy)
+
+
+def extract_patches_levels(
+    levels: list[torch.Tensor], blurred: list[torch.Tensor], xys: list[torch.Tensor]
+) -> torch.Tensor:
+    """`extract_patches_dual` for every pyramid level at once: (2, M, 40, 40)
+    with M = sum(n_l), [0] from the raw levels and [1] from the blurred
+    ones, the levels concatenated in order. One kernel launch on CUDA
+    tensors; the plain version level by level on CPU tensors."""
+    _check_level_args(levels, blurred, xys)
+    if xys[0].device.type == "cuda":
+        return _gather_cuda(levels, blurred, xys)
+    return torch.stack([
+        torch.cat([_gather_plain(img, xy) for img, xy in zip(imgs, xys)]) for imgs in (levels, blurred)
+    ])
 
 
 def _brief_rotated_pairs():
@@ -227,13 +277,13 @@ def ic_angle_from_patches(patches: torch.Tensor) -> torch.Tensor:
     return torch.atan2(m[:, 1], m[:, 0])
 
 
-def _describe_per_level(levels, blurred, xys, gather_dual):
-    """gather -> IC angle -> BRIEF -> packed words, level by level."""
+def _describe_per_level(patch_pairs):
+    """(raw, blurred) patches of each level -> IC angle -> BRIEF -> packed
+    words, level by level."""
     from .orb import pack_bits
 
     outs = []
-    for lvl, blur, xy in zip(levels, blurred, xys):
-        praw, pblur = gather_dual(lvl, blur, xy)
+    for praw, pblur in patch_pairs:
         angle = ic_angle_from_patches(praw)
         bits = brief_from_patches(pblur, angle)
         outs.append((angle, bits, pack_bits(bits)))
@@ -243,15 +293,17 @@ def _describe_per_level(levels, blurred, xys, gather_dual):
 def describe_keypoints_plain(levels, blurred, xys):
     """Plain PyTorch version of `describe_keypoints` (any device)."""
     return _describe_per_level(
-        levels, blurred, xys, lambda a, b, xy: (_gather_plain(a, xy), _gather_plain(b, xy))
+        (_gather_plain(a, xy), _gather_plain(b, xy)) for a, b, xy in zip(levels, blurred, xys)
     )
 
 
 def describe_keypoints_per_level(levels, blurred, xys):
-    """The same function by the per-level route: one patch-gather launch
-    per level (`extract_patches_dual`), then the PyTorch angle, BRIEF and
-    packing ops on the gathered patches."""
-    return _describe_per_level(levels, blurred, xys, extract_patches_dual)
+    """The same function by the per-level route: one patch-gather launch for
+    every level (`extract_patches_levels`), then the PyTorch angle, BRIEF
+    and packing ops on each level's view of the gathered patches."""
+    both = extract_patches_levels(levels, blurred, xys)
+    ends = np.cumsum([0] + [xy.shape[0] for xy in xys])
+    return _describe_per_level((both[0, s:e], both[1, s:e]) for s, e in zip(ends[:-1], ends[1:]))
 
 
 @functools.lru_cache(maxsize=None)
@@ -314,12 +366,7 @@ def describe_keypoints(
     the keypoint clipped into the image first. One kernel launch on CUDA
     tensors; the plain version on CPU tensors.
     """
-    if not (0 < len(levels) == len(blurred) == len(xys) <= _kernels.MAX_LEVELS):
-        raise ValueError(f"need 1..{_kernels.MAX_LEVELS} levels, as many blurred copies and keypoint sets")
-    for lvl, blur, xy in zip(levels, blurred, xys):
-        _check_gather_args([lvl, blur], xy)
-        if xy.device != xys[0].device:
-            raise ValueError("all levels must lie on one device")
+    _check_level_args(levels, blurred, xys)
     if xys[0].device.type == "cuda":
         return _describe_cuda(levels, blurred, xys)
     return describe_keypoints_plain(levels, blurred, xys)

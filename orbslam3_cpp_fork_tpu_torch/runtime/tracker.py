@@ -736,6 +736,26 @@ class DeviceKFStore:
 # ----------------------------------------------------------------------------
 
 
+@dataclasses.dataclass
+class CullStats:
+    """What keyframe culling decided, counted over a tracker's life: the
+    calls, the valid keyframes that were no neighbour at weight 15 (never
+    candidates), and every candidate by the reason it was kept or culled.
+    `redundancy` holds the redundant fraction of every candidate whose
+    fraction was computed. Reading only: nothing here feeds a decision."""
+
+    calls: int = 0
+    not_neighbour: int = 0
+    candidates: int = 0
+    protected: int = 0  # the new keyframe, the reference, the chain's tail, the map origin
+    inertial_gap: int = 0
+    few_landmarks: int = 0
+    below_redundancy: int = 0
+    max_cull: int = 0  # left once the call's bound was reached
+    culled: int = 0
+    redundancy: list = dataclasses.field(default_factory=list)
+
+
 class Tracker:
     """Visual SLAM front end + local mapping (System::TrackMonocular /
     TrackStereo / TrackRGBD + Tracking::Track + LocalMapping::Run), with the
@@ -807,6 +827,7 @@ class Tracker:
         self.trajectory: list[tuple] = []
         self._traj_anchor_ptr = 0
         self.n_kf_inserted = 0
+        self.cull_stats = CullStats()
         self._dev_local: dict | None = None  # device local-map snapshot
         self._snap_seq = 0  # bumped on every _dev_local swap
         self._last_n_in = 0  # latest tracked-inlier count (any path)
@@ -3079,10 +3100,14 @@ class Tracker:
         Inertial guard: never open a gap of more than 3 s in the
         preintegration chain."""
         m = self.map
+        st = self.cull_stats
+        st.calls += 1
         neigh, _ = m.covisible_keyframes(k, min_weight=15)
+        valid_ids = np.nonzero(m.kf_valid)[0]
+        st.not_neighbour += len(valid_ids) - 1 - len(neigh)
         if len(neigh) == 0:
             return
-        valid_ids = np.nonzero(m.kf_valid)[0]
+        st.candidates += len(neigh)
         fid_min = int(m.kf_frame_id[valid_ids].min())
         red_th = 0.5 if self.inertial and self.cfg.sensor != Sensor.IMU_MONOCULAR else 0.9
         # Work bound per insertion, lifted under capacity pressure so the
@@ -3090,22 +3115,22 @@ class Tracker:
         occupancy = len(valid_ids) / m.cfg.max_keyframes
         max_cull = 2 if occupancy < 0.7 else 8
         n_culled = 0
-        for kf in [int(x) for x in neigh]:
+        for i, kf in enumerate(int(x) for x in neigh):
             if n_culled >= max_cull:
+                st.max_cull += len(neigh) - i
                 break
-            if kf in (k, self.ref_kf, self.last_kf_slot):
-                continue
-            if int(m.kf_frame_id[kf]) == fid_min:  # map origin
+            if kf in (k, self.ref_kf, self.last_kf_slot) or int(m.kf_frame_id[kf]) == fid_min:  # or the map origin
+                st.protected += 1
                 continue
             if self.inertial:
                 p, nx = int(m.kf_prev[kf]), int(m.kf_next[kf])
-                if p < 0 or nx < 0:
-                    continue
-                if float(m.kf_timestamp[nx] - m.kf_timestamp[p]) > 3.0:
+                if p < 0 or nx < 0 or float(m.kf_timestamp[nx] - m.kf_timestamp[p]) > 3.0:
+                    st.inertial_gap += 1
                     continue
             lm = m.kf_lm_idx[kf]
             f = np.nonzero(lm >= 0)[0]
             if len(f) < 10:
+                st.few_landmarks += 1
                 continue
             lm_sel = lm[f]
             lvl_kf = m.kf_level[kf, f]
@@ -3120,10 +3145,13 @@ class Tracker:
                 l2 = lut[lm_sel]
                 count += ((l2 >= 0) & (l2 <= lvl_kf + 1)).astype(np.int32)
             redundant = count >= 3
+            st.redundancy.append(float(redundant.mean()))
             if redundant.mean() < red_th:
+                st.below_redundancy += 1
                 continue
             self._remove_keyframe_full(kf)
             n_culled += 1
+            st.culled += 1
         if n_culled:
             log.info("culled %d redundant keyframes", n_culled)
 

@@ -33,26 +33,60 @@ def _frame(h=480, w=752):
     return scene, Rs, ts, synthetic.to_u8(synthetic.render_frame(scene, Rs[0], ts[0]))
 
 
-def test_kernel_matches_plain_at_every_level(dev):
-    p = orb.OrbParams(n_features=1000)
-    img = torch.from_numpy(_frame()[3].astype(np.float32)).to(dev)
-    for l, lvl in enumerate(image.build_pyramid(img)):
-        xy, _, _ = orb.level_keypoints(lvl, orb.level_caps(p)[l], p)
-        blur = image.gaussian_blur7(lvl)
-        ka, kb = patches.extract_patches_dual(lvl.contiguous(), blur.contiguous(), xy.contiguous())
-        assert torch.equal(ka, patches._gather_plain(lvl, xy)), f"level {l}: tolerance bitwise"
-        assert torch.equal(kb, patches._gather_plain(blur, xy)), f"level {l}: tolerance bitwise"
+def _gathered_once(levels, blurred, xys):
+    """One batched gather launch, with the host and card counts of it."""
+    dev = xys[0].device
+    counter = patches.gather_counter(dev)
+    torch.cuda.synchronize()
+    counter.zero_()
+    before = patches.launches
+    out = patches.extract_patches_levels(levels, blurred, xys)
+    torch.cuda.synchronize()
+    assert patches.launches - before == 1 and int(counter) == 1, "one launch, counted by the wrapper and the card"
+    return out
+
+
+@pytest.mark.parametrize("hw,n_features", [((480, 752), 1000), ((376, 1241), 2000)], ids=["ring", "kitti"])
+def test_kernel_matches_plain_at_every_level(dev, hw, n_features):
+    """All levels of a real pyramid in one launch (KITTI's 2,496 slots: two
+    waves of blocks)."""
+    p = orb.OrbParams(n_features=n_features)
+    img = torch.from_numpy(_frame(*hw)[3].astype(np.float32)).to(dev)
+    levels = [lvl.contiguous() for lvl in image.build_pyramid(img)]
+    blurred = [image.gaussian_blur7(lvl).contiguous() for lvl in levels]
+    xys = [orb.level_keypoints(lvl, orb.level_caps(p)[l], p)[0].contiguous() for l, lvl in enumerate(levels)]
+    got = _gathered_once(levels, blurred, xys)
+    assert got.shape == (2, sum(orb.level_caps(p)), 40, 40)
+    start = 0
+    for l, (lvl, blur, xy) in enumerate(zip(levels, blurred, xys)):
+        end = start + xy.shape[0]
+        assert torch.equal(got[0, start:end], patches._gather_plain(lvl, xy)), f"level {l}: tolerance bitwise"
+        assert torch.equal(got[1, start:end], patches._gather_plain(blur, xy)), f"level {l}: tolerance bitwise"
+        start = end
 
 
 @pytest.mark.parametrize("n", [1, 127, 129, 1000])
 def test_kernel_matches_plain_edge_cases(dev, n):
+    """One image and one level (`extract_patches`), then three levels with
+    an empty one between: keypoints on and beyond the border."""
     h, w = 133, 211
     g = torch.Generator().manual_seed(n)
+
+    def kps(hh, ww, k):
+        xy = torch.stack([torch.randint(-30, ww + 30, (k,), generator=g), torch.randint(-30, hh + 30, (k,), generator=g)], 1)
+        xy[: min(k, 4)] = torch.tensor([[0, 0], [ww - 1, hh - 1], [0, hh - 1], [ww - 1, 0]])[: min(k, 4)]
+        return xy.to(torch.int32).to(dev)
+
     img = (torch.rand((h, w), generator=g) * 255).to(dev)
-    xy = torch.stack([torch.randint(-30, w + 30, (n,), generator=g), torch.randint(-30, h + 30, (n,), generator=g)], 1)
-    xy[: min(n, 4)] = torch.tensor([[0, 0], [w - 1, h - 1], [0, h - 1], [w - 1, 0]])[: min(n, 4)]
-    xy = xy.to(torch.int32).to(dev)
+    xy = kps(h, w, n)
     assert torch.equal(patches.extract_patches(img, xy), patches._gather_plain(img, xy)), "tolerance: bitwise"
+    levels = [img, img[:50, :64].contiguous(), img[10:51, 20:63].contiguous()]
+    blurred = [image.gaussian_blur7(lvl).contiguous() for lvl in levels]
+    xys = [xy, torch.zeros((0, 2), dtype=torch.int32, device=dev), kps(41, 43, n)]
+    got = _gathered_once(levels, blurred, xys)
+    for i, imgs in enumerate((levels, blurred)):
+        ref = torch.cat([patches._gather_plain(im, k) for im, k in zip(imgs, xys)])
+        assert torch.equal(got[i], ref), "tolerance: bitwise"
 
 
 def test_kernel_counts_launches_and_rejects_bad_inputs(dev):

@@ -50,7 +50,10 @@ def long_run():
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
-        yield _run(lambda scene: Tracker(chip_smoke.long_config(scene), "cpu"))
+        scene, stamps, Rs, ts = chip_smoke.render_long()
+        tracker = Tracker(chip_smoke.long_config(scene), "cpu")
+        n_tracked, _, tracker.after_loop, tracker.rows_differ = chip_smoke.drive_long(tracker, scene, stamps, Rs, ts)
+        yield tracker, stamps, Rs, ts, n_tracked
     finally:
         torch.set_num_threads(n)
 
@@ -73,6 +76,56 @@ def test_long_sequence_culling_bounds_map(long_run):
     n_kf = tracker.map.n_keyframes()
     assert n_kf < 0.45 * N, n_kf
     assert tracker.map.n_landmarks() < tracker.map.cfg.max_landmarks
+
+
+def test_long_sequence_culls_and_loops_are_counted(long_run, capsys):
+    """Keyframe culling by candidate and reason, the covisibility route, and
+    each loop's Sim(3) scale with the ATE just after it, printed as the
+    card's long phase prints them (ROADMAP C4, C5)."""
+    tracker, *_ = long_run
+    with capsys.disabled():
+        print()
+        rep = chip_smoke.cull_report("long sequence, port", tracker)
+        for rec in tracker.after_loop:
+            print(f"long sequence, port: after the loop at frame {rec['frame']}: Sim(3) scale "
+                  f"{rec['sim3_scale']:.4f}, scale-aligned ATE so far {rec['ate']:.6f} m")
+    st = tracker.cull_stats
+    assert st.candidates == st.protected + st.inertial_gap + st.few_landmarks + st.below_redundancy + st.max_cull \
+        + st.culled
+    assert tracker.n_kf_inserted - tracker.map.n_keyframes() == st.culled
+    assert rep["backend"] in ("native", "numpy") and len(tracker.after_loop) == tracker.loop_closer.n_loops_closed
+    assert len(tracker.rows_differ) == st.calls and sum(tracker.rows_differ) == 0, "covisibility routes disagree"
+
+
+def test_long_sequence_dense_route_decides_the_same(long_run, monkeypatch, capsys):
+    """The same run with the native map graph unloaded, so that every
+    covisibility query takes the dense `obs @ obs[k]` product: the same
+    culls for the same reasons and the same trajectory, bit for bit."""
+    import dataclasses
+
+    from orbslam3_cpp_fork_tpu_torch import native
+    from orbslam3_cpp_fork_tpu_torch.runtime.tracker import Tracker
+
+    tracker, stamps, Rs, ts, n_tracked = long_run
+    monkeypatch.setattr(native, "_tried", True)
+    monkeypatch.setattr(native, "_lib", None)
+    assert native.backend() == "numpy"
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        scene = chip_smoke.render_long()[0]
+        dense = Tracker(chip_smoke.long_config(scene), "cpu")
+        assert dense.map._native is None
+        n_dense, _, after_loop, _ = chip_smoke.drive_long(dense, scene, stamps, Rs, ts)
+    finally:
+        torch.set_num_threads(n)
+    with capsys.disabled():
+        print()
+        chip_smoke.cull_report("long sequence, port, dense route", dense)
+    assert dataclasses.asdict(dense.cull_stats) == dataclasses.asdict(tracker.cull_stats)
+    assert n_dense == n_tracked and after_loop == tracker.after_loop
+    a, b = dense.export_trajectory(), tracker.export_trajectory()
+    assert np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1]), "tolerance: bitwise"
 
 
 def test_long_sequence_ate(long_run, capsys):

@@ -261,3 +261,66 @@ def test_covisibility_under_three_threads():
             want[k] = 0
             want[~m.kf_valid] = 0
             assert np.array_equal(m.covisibility_weights(int(k)), want), f"round {r}: keyframe {k}"
+
+
+def test_covisibility_routes_agree_through_a_slam_run():
+    """A short synchronous SLAM run on the CPU through every path that writes
+    `obs` (keyframe insertion, observation binding, landmark fusion,
+    landmark culling, keyframe culling and removal): after every frame, and
+    just before every keyframe cull, the native graph's covisibility rows
+    equal the dense product `obs @ obs.T` for every live keyframe
+    (`chip_smoke.covisibility_rows_differ`, which the card's long phase
+    runs before every cull; ROADMAP C5). A keyframe every 2 frames of a slow 320x240 pass makes keyframes
+    redundant enough that the cull removes some."""
+    import torch
+
+    import chip_smoke
+    from orbslam3_cpp_fork_tpu_torch.datasets import synthetic
+    from orbslam3_cpp_fork_tpu_torch.ops.orb import OrbParams
+    from orbslam3_cpp_fork_tpu_torch.runtime import tracker as tt
+
+    assert native.backend() == "native", "g++ is present here: the native graph must build"
+    scene = synthetic.make_scene(seed=3, width=320, height=240)
+    Rs, ts = synthetic.smooth_trajectory(n_frames=13, step=0.03, yaw_rate=0.002)
+    K = scene.K
+    cfg = tt.TrackerConfig(
+        camera=convert.camera_from_numpy(K[0, 0], K[1, 1], K[0, 2], K[1, 2]), width=scene.width,
+        height=scene.height, orb=OrbParams(n_features=300), async_mapping=False, enable_loop_closing=False,
+        kf_max_interval=2, kf_min_interval=1, map_cfg=tms.MapConfig(max_keyframes=32, max_landmarks=4096),
+    )
+    calls = {}
+    checked = [0]
+
+    def routes_agree(m):
+        assert chip_smoke.covisibility_rows_differ(m) == 0
+        checked[0] += 1
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    patch = pytest.MonkeyPatch()
+    try:
+        for name in ("add_keyframe", "add_observation", "replace_landmark", "remove_landmarks", "remove_keyframe"):
+            def counted(self, *a, _real=getattr(tms.MapState, name), _name=name, **kw):
+                calls[_name] = calls.get(_name, 0) + 1
+                return _real(self, *a, **kw)
+            patch.setattr(tms.MapState, name, counted)
+        trk = tt.Tracker(cfg, "cpu")
+        assert trk.map._native is not None
+        real_cull = trk._cull_keyframes
+
+        def cull(k):
+            routes_agree(trk.map)
+            return real_cull(k)
+
+        trk._cull_keyframes = cull
+        for i, f in enumerate(synthetic.render_sequence(scene, Rs, ts)):
+            trk.track(f, 0.05 * i)
+            routes_agree(trk.map)
+    finally:
+        patch.undo()
+        torch.set_num_threads(n)
+    assert trk.state == tt.TrackState.OK
+    assert trk.cull_stats.culled >= 1 and calls.get("remove_keyframe", 0) >= trk.cull_stats.culled
+    for name in ("add_keyframe", "add_observation", "replace_landmark", "remove_landmarks"):
+        assert calls.get(name, 0) >= 1, f"the run never called MapState.{name}"
+    assert checked[0] == 13 + trk.cull_stats.calls

@@ -145,3 +145,57 @@ def test_plain_gather_does_not_count_launches():
     before = tp.launches
     tp.extract_patches_dual(torch.zeros((30, 40)), torch.zeros((30, 40)), torch.zeros((5, 2), dtype=torch.int32))
     assert tp.launches == before
+
+
+def _pyramid_slots(seed):
+    """A seeded 752x480 pyramid (8 levels, the port's level shapes), its
+    blurred copy, and the main path's 1,247 keypoint slots spread over the
+    levels with level 5 left empty: random keypoints up to 25 px beyond
+    each level's image plus every border and corner case."""
+    from orbslam3_cpp_fork_tpu_torch.ops import image, orb
+
+    rng = np.random.default_rng(seed)
+    img = torch.from_numpy(rng.uniform(0.0, 255.0, (480, 752)).astype(np.float32))
+    levels = [lvl.contiguous() for lvl in image.build_pyramid(img)]
+    blurred = [image.gaussian_blur7(lvl).contiguous() for lvl in levels]
+    caps = list(orb.level_caps(orb.OrbParams(n_features=1000)))
+    caps[0], caps[5] = caps[0] + caps[5], 0
+    xys = []
+    for l, (lvl, n) in enumerate(zip(levels, caps)):
+        h, w = lvl.shape
+        xy = _keypoints(h, w, n - 12, seed + l, outside=25)[:n] if n else np.zeros((0, 2), np.int32)
+        xys.append(torch.from_numpy(xy))
+    return levels, blurred, xys, caps
+
+
+def test_extract_patches_levels_matches_reference_level_by_level():
+    levels, blurred, xys, caps = _pyramid_slots(12)
+    assert sum(caps) == 1247 and len(levels) == 8 and caps[5] == 0
+    got = tp.extract_patches_levels(levels, blurred, xys).numpy()
+    assert got.shape == (2, 1247, 40, 40)
+    ends = np.cumsum([0] + caps)
+    for l, (lvl, blur, xy) in enumerate(zip(levels, blurred, xys)):
+        a, b, xy_n = lvl.numpy(), blur.numpy(), xy.numpy()
+        h, w = a.shape
+        ga, gb = got[0, ends[l]:ends[l + 1]], got[1, ends[l]:ends[l + 1]]
+        # The reference's own gather clips every keypoint first.
+        ra = np.asarray(jax.jit(jp.extract_patches)(jnp.asarray(a), jnp.asarray(xy_n)))
+        rb = np.asarray(jax.jit(jp.extract_patches)(jnp.asarray(b), jnp.asarray(xy_n)))
+        assert np.array_equal(ga, ra) and np.array_equal(gb, rb), f"level {l}: tolerance bitwise"
+        # Its dual gather stacks both images, so it clamps as the kernel
+        # does only for keypoints inside the image (the extractor's own).
+        inside = (xy_n[:, 0] >= 0) & (xy_n[:, 0] < w) & (xy_n[:, 1] >= 0) & (xy_n[:, 1] < h)
+        if inside.any():
+            da, db = jax.jit(jp.extract_patches_dual)(jnp.asarray(a), jnp.asarray(b), jnp.asarray(xy_n[inside]))
+            assert np.array_equal(ga[inside], np.asarray(da)), f"level {l}: tolerance bitwise (dual, raw)"
+            assert np.array_equal(gb[inside], np.asarray(db)), f"level {l}: tolerance bitwise (dual, blurred)"
+
+
+def test_describe_per_level_route_equals_plain_on_cpu():
+    levels, blurred, xys, _ = _pyramid_slots(13)
+    before = tp.launches
+    got = tp.describe_keypoints_per_level(levels, blurred, xys)
+    ref = tp.describe_keypoints_plain(levels, blurred, xys)
+    assert tp.launches == before, "the plain route counts no launch"
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape and torch.equal(g, r), "tolerance: exact (the same patches, the same ops)"
