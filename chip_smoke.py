@@ -233,8 +233,12 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                launches (= frames); the covisibility route
                (native.backend()), keyframe culling by call, candidate and
                reason with the redundant fractions reached; and after each
-               closed loop its Sim(3) scale and the scale-aligned ATE of the
-               poses exported so far.
+               closed loop its Sim(3) scale, the scale-aligned ATE of the
+               poses exported so far, the ground truth of its two frames
+               (centre distance, angle of the optical axes) and, for each
+               stage of its correction (window correction, fuse, essential
+               graph, global BA), the keyframe ATE after it and its host ms
+               (record_loop_stages; printed, not gated).
 `--profile N` adds a torch.profiler pass over N frames (kernel launches and
 device time per frame, host time per stage) and over the SLAM phase's
 tracked frames and mapping steps, `--compare-routes` a timing of the tracker
@@ -3048,17 +3052,108 @@ def covisibility_rows_differ(m):
                for i, k in enumerate(live))
 
 
+LOOP_STAGES = ("window", "fuse", "essential_graph", "global_ba")
+
+
+def keyframe_ate(m, ts):
+    """Scale-aligned ATE (m) of a map's live keyframe centres against the
+    true centres `ts` of their frames."""
+    import numpy as np
+
+    from orbslam3_cpp_fork_tpu_torch.utils.evaluation import ate_rmse
+
+    live = np.nonzero(m.kf_valid)[0]
+    centres = -np.einsum("kji,kj->ki", m.kf_R[live].astype(np.float64), m.kf_t[live].astype(np.float64))
+    return ate_rmse(m.kf_frame_id[live].astype(np.float64), centres, np.arange(len(ts), dtype=np.float64),
+                    np.asarray(ts, np.float64), max_dt=0.5).rmse_scaled
+
+
+def record_loop_stages(trk, ts, keep=False):
+    """Wrap the loop stages of a tracker's loop closer on the instance (the
+    port's or the reference's: the names are the same) and return the list
+    that each loop correction appends a record to: the keyframe, the match
+    and the Sim(3) (s, R, t) the correction was given, the candidate
+    validations and projection counts of its loop step, and for each stage
+    of LOOP_STAGES the host ms and the keyframe ATE after it (`keyframe_ate`
+    against the true centres `ts`; "before" is the map the correction
+    started from). The window stage ends where SearchAndFuse starts, and
+    the global BA is the loop closer's `global_ba_hook`. With `keep`, each
+    stage also keeps copies of what it wrote: keyframe poses and landmark
+    positions, and after the fuse the landmark tables."""
+    import numpy as np
+
+    lc = trk.loop_closer
+    loops, seen = [], dict(validations=[], projections=[], queries=[])
+    clock = {}
+
+    def copies(stage):
+        m = lc.m
+        if not keep:
+            return {}
+        if stage == "fuse":
+            return dict(lm_valid=m.lm_valid.copy(), lm_replaced=m.lm_replaced.copy(), kf_lm_idx=m.kf_lm_idx.copy(),
+                        obs=m.obs.copy())
+        return dict(kf_valid=m.kf_valid.copy(), kf_R=m.kf_R.copy(), kf_t=m.kf_t.copy(), lm_valid=m.lm_valid.copy(),
+                    lm_pos=m.lm_pos.copy())
+
+    def close(stage):
+        now = time.perf_counter()
+        rec = loops[-1]
+        rec["stages"][stage] = dict(ms=1e3 * (now - clock["t"]), ate=keyframe_ate(lc.m, ts), **copies(stage))
+        clock["t"] = time.perf_counter()
+
+    def wrap(obj, name, before=None, after=None, note=None):
+        real = getattr(obj, name)
+
+        def run(*a, **kw):
+            if before is not None:
+                before(*a)
+            out = real(*a, **kw)
+            if note is not None:
+                note(a, out)
+            if after is not None:
+                after()
+            return out
+
+        setattr(obj, name, run)
+
+    def start(k, c, s, R, t):
+        loops.append(dict(kf=int(k), match=int(c), s=float(s), R=np.array(R), t=np.array(t),
+                          **{key: list(v) for key, v in seen.items()},
+                          stages=dict(before=dict(ms=0.0, ate=keyframe_ate(lc.m, ts)))))
+        for v in seen.values():
+            v.clear()
+        clock["t"] = time.perf_counter()
+
+    wrap(lc, "_validate_candidate",
+         note=lambda a, out: seen["validations"].append((int(a[0]), int(a[1]), None if out is None else (
+             float(out[0]), np.array(out[1]), np.array(out[2]), int(out[3])))))
+    wrap(lc, "_projection_matches", note=lambda a, out: seen["projections"].append((int(a[0]), int(a[1]), int(out))))
+    wrap(lc.kfdb, "query_groups", note=lambda a, out: seen["queries"].append(
+        ([int(g) for g in out[0]], [float(x) for x in out[1]])))
+    wrap(lc, "_correct_loop_locked", before=start)
+    wrap(lc, "_search_and_fuse", before=lambda *a: close("window"), after=lambda: close("fuse"))
+    wrap(lc, "_essential_graph", after=lambda: close("essential_graph"))
+    if lc.global_ba_hook is not None:
+        wrap(lc, "global_ba_hook", after=lambda: close("global_ba"))
+    return loops
+
+
 def drive_long(trk, scene, stamps, Rs, ts):
     """Track the long phase's frames. Just before every keyframe cull, counts
     the live keyframes whose covisibility row differs from the dense
     product (the cull's first step queries the same rows, so the check moves
     no decision). After every frame that closed a loop, records the loop's
-    Sim(3) scale and the scale-aligned ATE of the poses exported so far
-    (ROADMAP C4's split). Returns (frames tracked, ms a frame, those records,
-    the differing rows of every cull call)."""
+    Sim(3) scale, the scale-aligned ATE of the poses exported so far, the
+    ground truth of its two frames (`revisit`: centre distance, angle of the
+    optical axes) and the keyframe ATE after each stage of its correction
+    (`record_loop_stages`; ROADMAP C4's split). Returns (frames tracked, ms a
+    frame, those records, the differing rows of every cull call, the host ms
+    of each loop's stages)."""
     from orbslam3_cpp_fork_tpu_torch.utils.evaluation import ate_rmse
 
     n_tracked, ms, after_loop, differ = 0, [], [], []
+    stages = record_loop_stages(trk, ts)
     real_cull = trk._cull_keyframes
 
     def cull(k):
@@ -3076,11 +3171,32 @@ def drive_long(trk, scene, stamps, Rs, ts):
             if len(loops) > len(after_loop):
                 ts_est, Twc = trk.export_trajectory()  # synchronous: nothing in flight
                 ate = ate_rmse(ts_est, Twc[:, :3, 3], stamps, ts)
-                after_loop += [dict(frame=i, kf=int(ev["kf"]), match=int(ev["match"]), sim3_scale=float(ev["scale"]),
-                                    ate=ate.rmse_scaled, align_scale=float(ate.scale)) for ev in loops[len(after_loop):]]
+                for j, ev in enumerate(loops[len(after_loop):], start=len(after_loop)):
+                    dist, deg = revisit(Rs, ts, ev)
+                    after_loop.append(dict(
+                        frame=i, kf=int(ev["kf"]), match=int(ev["match"]), sim3_scale=float(ev["scale"]),
+                        ate=ate.rmse_scaled, align_scale=float(ate.scale), truth_m=dist, truth_deg=deg,
+                        kf_ate={name: st["ate"] for name, st in stages[j]["stages"].items()}))
     finally:
         del trk._cull_keyframes
-    return n_tracked, ms, after_loop, differ
+    return n_tracked, ms, after_loop, differ, [{name: st["ms"] for name, st in rec["stages"].items()} for rec in stages]
+
+
+def loop_stage_lines(name, after_loop, stage_ms=None):
+    """Log each closed loop of `drive_long`'s records: its Sim(3) scale, the
+    ground truth of its two frames beside the LOOP_REVISIT_DEG bar that
+    tells a true revisit, the keyframe ATE before the correction and after
+    each of its stages, and with `stage_ms` the host ms of each stage."""
+    for j, rec in enumerate(after_loop):
+        log(f"{name}: loop at frame {rec['frame']} (keyframe {rec['kf']} -> {rec['match']}, Sim(3) scale "
+            f"{rec['sim3_scale']:.4f}): ground truth {rec['truth_m']:.3f} m apart, optical axes {rec['truth_deg']:.1f} "
+            f"deg apart ({'within' if rec['truth_deg'] <= LOOP_REVISIT_DEG else 'beyond'} the {LOOP_REVISIT_DEG:.0f} "
+            f"deg of a true revisit); scale-aligned ATE of the poses exported so far {rec['ate']:.6f} m")
+        ates = ", ".join(f"{st} {ate:.6f} m" for st, ate in rec["kf_ate"].items())
+        log(f"{name}: loop at frame {rec['frame']}: keyframe ATE {ates}")
+        if stage_ms is not None and j < len(stage_ms):
+            log(f"{name}: loop at frame {rec['frame']}: host ms "
+                + ", ".join(f"{st} {v:.1f}" for st, v in stage_ms[j].items() if st != "before"))
 
 
 def cull_report(name, trk):
@@ -3148,17 +3264,14 @@ def phase_long(dev, n_frames, gate, long_state=None):
     trk.map.remove_landmarks = remove_landmarks
     read = counted(dev)
     t0 = time.perf_counter()
-    n_tracked, ms, after_loop, differ = drive_long(trk, scene, stamps, Rs, ts)
+    n_tracked, ms, after_loop, differ, stage_ms = drive_long(trk, scene, stamps, Rs, ts)
     secs = time.perf_counter() - t0
     cnt, host = read()
     m = trk.map
     ts_est, Twc = trk.export_trajectory()
     ate = ate_rmse(ts_est, Twc[:, :3, 3], stamps, ts)
     loops, gbas = loop_report("long", trk, Rs, ts)
-    for rec in after_loop:
-        log(f"long: after the loop at frame {rec['frame']} (keyframe {rec['kf']} -> {rec['match']}, Sim(3) scale "
-            f"{rec['sim3_scale']:.4f}): scale-aligned ATE of the poses exported so far {rec['ate']:.6f} m (alignment "
-            f"scale {rec['align_scale']:.4f})")
+    loop_stage_lines("long", after_loop, stage_ms)
     culls = cull_report("long", trk)
     log(f"long: covisibility rows that differ from the dense obs @ obs.T just before a cull: "
         f"{sum(differ)} over {len(differ)} cull calls")
@@ -3169,7 +3282,7 @@ def phase_long(dev, n_frames, gate, long_state=None):
                   keyframes_inserted=int(trk.n_kf_inserted), landmarks=n_lm, loops=int(trk.loop_closer.n_loops_closed),
                   landmarks_removed=removed[0], ate=ate.rmse_scaled, scale=ate.scale, launches=cnt,
                   ms_median=float(np.median(ms)), ms_p99=float(np.percentile(ms, 99)), seconds=secs,
-                  after_loop=after_loop, culls=culls, covisibility_rows_differ=sum(differ))
+                  after_loop=after_loop, loop_stage_ms=stage_ms, culls=culls, covisibility_rows_differ=sum(differ))
     log(f"long ({n_frames} noisy frames at 640x480, {LONG_FEATURES} features, synchronous, loop closing on): state "
         f"{trk.state.name}; tracked {n_tracked}/{n_frames} (> {LONG_MIN_TRACKED} required); keyframes {n_kf} alive of "
         f"{trk.n_kf_inserted} inserted (cap {m.cfg.max_keyframes}; < {LONG_MAX_KF_FRAC} x frames required), landmarks "
