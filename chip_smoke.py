@@ -239,6 +239,39 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                stage of its correction (window correction, fuse, essential
                graph, global BA), the keyframe ATE after it and its host ms
                (record_loop_stages; printed, not gated).
+ 17. inertial long - (a second child process, started with the first)
+               the inertial phase's bobbing circle over two laps (360
+               frames at 10 fps, the ring's seed 1) at EuRoC's 752x480 with
+               1,000 features, the camera on EuRoC's rig IMU.T_b_c1
+               (EUROC_T_B_C1; the IMU rows stay the body's), the
+               reference's default ladder (VIBA2 at 15 s, ScaleRefinement
+               windows from 25 s), loop closing and the global BA on. First
+               the fused describe kernel against its plain version on the
+               scene's first frame. Part A, the synchronous tracker over
+               every frame: state OK, > 90% tracked, IMU stage 3 with VIBA2
+               within one keyframe of the reference's CPU frame,
+               ScaleRefinement called as often as in the reference's CPU
+               run, at least one loop, each a true revisit, each essential
+               graph in 4dof mode moving no keyframe's gravity direction in
+               its body frame and no vertex scale by VIL_GRAVITY_TOL, each
+               followed by the inertial global BA (FullInertialBA(7)),
+               |scale - 1| < 0.12, |n_z| > 0.98, scale-aligned ATE within
+               max(JAX, port on the CPU) + 10 mm, one describe launch a
+               frame; it prints the frames and seconds of IMU init, VIBA1
+               and VIBA2, each ScaleRefinement's scale and branch, each
+               loop's keyframes, ground truth, graph mode and host ms of the
+               graph and the global BA, ms a frame. Part B:
+               mono_inertial_euroc in the default mode on an EuRoC tree of
+               the first 220 frames whose settings carry IMU.T_b_c1: no
+               thread error, > 80% exported in order, the highest IMU stage
+               any map reached >= the reference driver's lowest in three
+               CPU runs (2: in this mode both lose the map on this scene,
+               the port before or after VIBA2 by thread timing), for each
+               map with >= 10 poses tracked while OK |scale - 1| < 0.2 and
+               its scale-aligned ATE <= 2 x part A's + 0.02 m, at least the
+               reference driver's fewest loops in three CPU runs; it prints
+               whether VIBA2 was reached, the losses and maps, the loops
+               and the background inertial global BAs.
 `--profile N` adds a torch.profiler pass over N frames (kernel launches and
 device time per frame, host time per stage) and over the SLAM phase's
 tracked frames and mapping steps, `--compare-routes` a timing of the tracker
@@ -413,6 +446,43 @@ VI_JAX_ATE_M = 0.08602397722054414
 VI_PORT_ATE_M = 0.07992365339961789
 VI_STEREO_JAX_ATE_M = 0.0363071075563861
 VI_STEREO_PORT_ATE_M = 0.03667004520882259
+# Inertial long phase: the inertial phase's scene over two laps (36 s at
+# VI_FPS), EuRoC's published width and feature budget
+# (Examples/Monocular-Inertial/EuRoC.yaml), its camera rig IMU.T_b_c1 (cam0's
+# T_BS in EuRoC's sensor.yaml: body from camera, row-major), the reference's
+# default ladder (VIBA2 at 15 s, ScaleRefinement from 25 s), loop closing
+# and the global BA on.
+EUROC_T_B_C1 = ((0.0148655429818, -0.999880929698, 0.00414029679422, -0.0216401454975),
+                (0.999557249008, 0.0149672133247, 0.025715529948, -0.064676986768),
+                (-0.0257744366974, 0.00375618835797, 0.999660727178, 0.00981073058949),
+                (0.0, 0.0, 0.0, 1.0))
+VIL_FRAMES = 360
+# The ring's seed: with test_vi_tracking_e2e.py's seed 5 on EuRoC's rig the
+# reference loses frame 34 at 752x480 at its 30-inlier floor (ROADMAP R22)
+# and never reaches VIBA2; seed 1 is the first it tracks through two laps.
+VIL_SEED = 1
+VIL_SIZE = (752, 480)
+VIL_FEATURES = 1000
+VIL_MIN_TRACKED = 0.90
+VIL_GRAVITY_TOL = 1e-5  # body gravity direction and vertex scales across a 4DoF essential graph
+# Part B: frames of the default-mode driver run, cut to the first revisit
+# after VIBA2 (frame ~186 in part A; VIBA2 at 150).
+VIL_DRIVER_FRAMES = 220
+VIL_DRIVER_SCALE_TOL = 0.2
+# CPU runs of part A's inputs, synchronous (pytest -m slow -s
+# tests/test_torch_inertial_long_e2e.py -k full_width): the reference's and
+# the port's scale-aligned ATE, the reference's VIBA2 frame and its
+# ScaleRefinement calls; and the reference driver's fewest loops over three
+# CPU runs of part B's tree in the default mode (-k driver).
+VIL_JAX_ATE_M = 0.05378950508379987
+VIL_PORT_ATE_M = 0.05505485166948986
+VIL_JAX_VIBA2_FRAME = 150
+VIL_JAX_REFINEMENTS = 2
+# In the default mode on the CPU the reference's driver loses its map 10
+# frames after VIBA1 in all three runs: its highest IMU stage is 2 (VIBA1)
+# and it closes no loop by frame 220.
+VIL_JAX_DRIVER_STAGE = 2
+VIL_JAX_DRIVER_LOOPS = 0
 # Entry phase: the card's (R2, t2) against the same fn on CPU inputs.
 ENTRY_TOL = 1e-3
 # Shell phase: the drivers run in-process on EuRoC-layout trees written here.
@@ -1858,6 +1928,12 @@ def per_map_ate(trk, ts_est, Twc, keep, stamps, ts_gt):
     map's kept exported poses aligned on their own (a record of a merged-away
     map counts in the map it was welded into, as export_trajectory resolves
     it)."""
+    return max([r.rmse_scaled for r in per_map_ates(trk, ts_est, Twc, keep, stamps, ts_gt).values()], default=0.0)
+
+
+def per_map_ates(trk, ts_est, Twc, keep, stamps, ts_gt):
+    """`per_map_ate`'s alignment of each map with at least 10 kept poses:
+    {map id: its ATE result}."""
     import numpy as np
 
     from orbslam3_cpp_fork_tpu_torch.utils.evaluation import ate_rmse
@@ -1873,12 +1949,12 @@ def per_map_ate(trk, ts_est, Twc, keep, stamps, ts_gt):
     mids = np.asarray(mids)
     if len(mids) != len(ts_est):
         fail("per-map ATE: the trajectory records do not match the exported poses")
-    worst = 0.0
+    out = {}
     for mid in np.unique(mids):
         sel = keep & (mids == mid)
         if sel.sum() >= 10:
-            worst = max(worst, float(ate_rmse(ts_est[sel], Twc[sel, :3, 3], stamps, ts_gt).rmse_scaled))
-    return worst
+            out[int(mid)] = ate_rmse(ts_est[sel], Twc[sel, :3, 3], stamps, ts_gt)
+    return out
 
 
 def atlas_arrays(atlas):
@@ -2082,20 +2158,35 @@ def bob_imu_rows(t0, t1):
     return np.asarray(rows, np.float32)
 
 
-def render_inertial(width, height, stereo=False, n_frames=None, ring=None, render=True):
+def bob_camera(t, Tbc=None):
+    """The camera's pose (Rwc, twc) at time t on `bob_state`'s body: Rwc =
+    Rwb Rbc, twc = twb + Rwb tbc for a body-from-camera `Tbc` (4x4), the
+    body's own pose without one."""
+    import numpy as np
+
+    Rwb, p = bob_state(t)[:2]
+    if Tbc is None:
+        return Rwb, p
+    T = np.asarray(Tbc, np.float64)
+    Rwb64 = Rwb.astype(np.float64)
+    return (Rwb64 @ T[:3, :3]).astype(np.float32), (p + Rwb64 @ T[:3, 3]).astype(np.float32)
+
+
+def render_inertial(width, height, stereo=False, n_frames=None, ring=None, render=True, Tbc=None, seed=5):
     """The scene of tests/test_vi_tracking_e2e.py (make_ring_scene(seed=5),
-    its ring resized by `ring`) at width x height over `n_frames` frames at
-    VI_FPS: stamps, ground-truth poses, uint8 frames (or (left, right) pairs
-    of the 0.2 m rig; None unless `render`) and each frame's IMU rows (None
-    for the first)."""
+    or another `seed`, its ring resized by `ring`) at width x height over
+    `n_frames` frames at VI_FPS: stamps, ground-truth camera poses
+    (`bob_camera` with the rig `Tbc`), uint8 frames (or (left, right) pairs
+    of the 0.2 m rig; None unless `render`) and each frame's IMU rows (the
+    body's; None for the first)."""
     import numpy as np
 
     from orbslam3_cpp_fork_tpu_torch.datasets import synthetic
 
-    scene = synthetic.make_ring_scene(seed=5, width=width, height=height, **(ring or {}))
+    scene = synthetic.make_ring_scene(seed=seed, width=width, height=height, **(ring or {}))
     n_frames = VI_FRAMES if n_frames is None else n_frames
     stamps = np.arange(n_frames) / VI_FPS
-    Rs, ts = (np.stack(x) for x in zip(*[bob_state(t)[:2] for t in stamps]))
+    Rs, ts = (np.stack(x) for x in zip(*[bob_camera(t, Tbc) for t in stamps]))
 
     def img(R, t):
         return synthetic.to_u8(synthetic.render_frame(scene, R, t))
@@ -2118,6 +2209,164 @@ def vi_config(scene, orb_params, sensor, **kw):
         camera=convert.camera_from_numpy(K[0, 0], K[1, 1], K[0, 2], K[1, 2]), width=scene.width,
         height=scene.height, sensor=sensor, orb=orb_params, imu=ImuSettings(freq=VI_IMU_HZ), **VI_LADDER,
         enable_loop_closing=False, async_mapping=False, **extra, **kw,
+    )
+
+
+def render_inertial_long(width=VIL_SIZE[0], height=VIL_SIZE[1], n_frames=VIL_FRAMES, render=True):
+    """The inertial long phase's sequence: `render_inertial` over two laps
+    with the camera on EuRoC's rig (EUROC_T_B_C1)."""
+    return render_inertial(width, height, n_frames=n_frames, render=render, Tbc=EUROC_T_B_C1, seed=VIL_SEED)
+
+
+def scale_branch(s, applied):
+    """The branch a ScaleRefinement call took, from the scale it estimated
+    (None: the chain was too short to solve) and whether it re-aligned the
+    map (LocalMapping::ScaleRefinement's three outcomes)."""
+    import math
+
+    if s is None:
+        return "skipped"
+    if not math.isfinite(s) or s < 0.1:
+        return "rejected"
+    return "applied" if applied else "no change needed"
+
+
+def _host(x):
+    import numpy as np
+
+    return x.detach().cpu().numpy() if hasattr(x, "detach") else np.asarray(x)
+
+
+def record_inertial_path(trk, vi, pose_graph, solver):
+    """Wrap the inertial path's stages on a tracker instance (the port's or
+    the reference's: the names are the same; `vi` is its optim.inertial
+    module, `pose_graph` the module its loop closer solves the essential
+    graph with and `solver` that function's name) and return the lists each
+    call appends to:
+    - "fiba": every FullInertialBA (keyframe, its frame, priors, iterations,
+      host ms, whether a loop's global BA ran it);
+    - "refine": every ScaleRefinement call (frame, seconds since the first
+      inertial keyframe, the scale it estimated, its branch, host ms);
+    - "graph": every essential graph (keyframe, mode, the largest move of a
+      keyframe's gravity direction in its body frame, Rwb^T e_z, and of a
+      vertex scale across it, host ms);
+    - "gba": every global BA after a loop (keyframe, "inertial" or
+      "visual", "inline" or "background", host ms of the request)."""
+    import numpy as np
+
+    from orbslam3_cpp_fork_tpu_torch.optim.pose_graph import FREE_DIMS
+
+    rec = dict(fiba=[], refine=[], graph=[], gba=[])
+    in_gba = [False]
+    Rbc = np.asarray(trk.Rbc, np.float64) if getattr(trk, "Rbc", None) is not None else np.eye(3)
+
+    def wrap(obj, name, fn):
+        real = getattr(obj, name)
+        setattr(obj, name, lambda *a, **kw: fn(real, *a, **kw))
+
+    def fiba(real, k, prior_g, prior_a, iters=15):
+        t0 = time.perf_counter()
+        out = real(k, prior_g, prior_a, iters)
+        rec["fiba"].append(dict(kf=int(k), frame=int(trk.map.kf_frame_id[k]), prior_g=float(prior_g),
+                                prior_a=float(prior_a), iters=int(iters), loop_gba=in_gba[0],
+                                ms=1e3 * (time.perf_counter() - t0)))
+        return out
+
+    def refine(real, frame, k):
+        got, real_init = [], vi.inertial_init
+
+        def init(*a, **kw):
+            res = real_init(*a, **kw)
+            got.append(float(_host(res.scale)))
+            return res
+
+        big0, t0 = trk.map.big_change_idx, time.perf_counter()
+        vi.inertial_init = init
+        try:
+            out = real(frame, k)
+        finally:
+            vi.inertial_init = real_init
+        s = got[0] if got else None
+        rec["refine"].append(dict(frame=int(frame.frame_id), t=float(frame.timestamp - trk.map.imu_t0), s=s,
+                                  branch=scale_branch(s, trk.map.big_change_idx != big0),
+                                  ms=1e3 * (time.perf_counter() - t0)))
+        return out
+
+    def graph(real, k, c, *a):
+        m = trk.loop_closer.m
+        seen, real_solve = [], getattr(pose_graph, solver)
+
+        def solve(*sa, **skw):
+            out = real_solve(*sa, **skw)
+            s_out = out.s if hasattr(out, "s") else out[0]
+            seen.append((_host(sa[-1] if "free_dims" not in skw else skw["free_dims"]), _host(sa[0]), _host(s_out)))
+            return out
+
+        live = m.kf_valid.copy()
+        g0 = m.kf_R[:, :, 2].astype(np.float64) @ Rbc.T  # Rwb^T e_z = Rbc Rcw e_z
+        t0 = time.perf_counter()
+        setattr(pose_graph, solver, solve)
+        try:
+            out = real(k, c, *a)
+        finally:
+            setattr(pose_graph, solver, real_solve)
+        ms = 1e3 * (time.perf_counter() - t0)
+        g1 = m.kf_R[:, :, 2].astype(np.float64) @ Rbc.T
+        both = live & m.kf_valid
+        mode = None
+        if seen:
+            dims = np.asarray(seen[0][0], np.float64)
+            mode = next((name for name, d in FREE_DIMS.items() if np.array_equal(d, dims)), "other")
+        rec["graph"].append(dict(kf=int(k), match=int(c), mode=mode, ms=ms,
+                                 gravity_moved=float(np.abs(g1[both] - g0[both]).max()) if both.any() else 0.0,
+                                 scale_moved=float(np.abs(seen[0][2][:len(seen[0][1])] - seen[0][1]).max())
+                                 if seen else 0.0))
+        return out
+
+    def gba_request(real, k, c):
+        kinds = []
+        wraps = [(name, getattr(trk, name)) for name in ("_full_inertial_ba", "_vi_global_ba_background", "_global_ba",
+                                                          "_gba_gather")]
+        for name, fn in wraps:
+            setattr(trk, name, lambda *a, _fn=fn, _n=name, **kw: (kinds.append(_n), _fn(*a, **kw))[1])
+        in_gba[0], t0 = True, time.perf_counter()
+        try:
+            out = real(k, c)
+        finally:
+            in_gba[0] = False
+            for name, fn in wraps:
+                setattr(trk, name, fn)
+        kind = "inertial" if {"_full_inertial_ba", "_vi_global_ba_background"} & set(kinds) else \
+            "visual" if kinds else "none"
+        rec["gba"].append(dict(kf=int(k), kind=kind, ms=1e3 * (time.perf_counter() - t0),
+                               where="background" if trk.worker is not None else "inline"))
+        return out
+
+    wrap(trk, "_full_inertial_ba", fiba)
+    wrap(trk, "_scale_refinement", refine)
+    if trk.loop_closer is not None:
+        wrap(trk.loop_closer, "_essential_graph", graph)
+        if trk.loop_closer.global_ba_hook is not None:
+            wrap(trk.loop_closer, "global_ba_hook", gba_request)
+    return rec
+
+
+def inertial_long_config(scene, n_features=VIL_FEATURES, **kw):
+    """The inertial long phase's TrackerConfig: IMU_MONOCULAR with EuRoC's
+    rig at 200 Hz, the reference's default ladder (the TrackerConfig
+    defaults), loop closing and the global BA on, synchronous."""
+    import numpy as np
+
+    from orbslam3_cpp_fork_tpu_torch import convert
+    from orbslam3_cpp_fork_tpu_torch.ops.orb import OrbParams
+    from orbslam3_cpp_fork_tpu_torch.runtime.tracker import ImuSettings, Sensor, TrackerConfig
+
+    K = scene.K
+    return TrackerConfig(
+        camera=convert.camera_from_numpy(K[0, 0], K[1, 1], K[0, 2], K[1, 2]), width=scene.width,
+        height=scene.height, sensor=Sensor.IMU_MONOCULAR, orb=OrbParams(n_features=n_features),
+        imu=ImuSettings(freq=VI_IMU_HZ, Tbc=np.asarray(EUROC_T_B_C1, np.float32)), enable_loop_closing=True,
+        async_mapping=False, **kw,
     )
 
 
@@ -3309,6 +3558,198 @@ def phase_long(dev, n_frames, gate, long_state=None):
     return cnt, report
 
 
+def imu_yaml(Tbc):
+    """SHELL_IMU_YAML's noise and rate with IMU.T_b_c1 = `Tbc` (4x4)."""
+    data = ", ".join(repr(float(x)) for row in Tbc for x in row)
+    return SHELL_IMU_YAML.split("IMU.T_b_c1:")[0] + (
+        f"IMU.T_b_c1: !!opencv-matrix\n   rows: 4\n   cols: 4\n   dt: f\n   data: [{data}]\n")
+
+
+def inertial_path_lines(name, rec, Rs, ts, events):
+    """Log an inertial run's ScaleRefinement calls and, for each loop, its
+    keyframes, ground truth, essential-graph mode and what moved across it,
+    and the global BA that followed."""
+    for r in rec["refine"]:
+        log(f"{name}: ScaleRefinement at frame {r['frame']} ({r['t']:.2f} s after the first inertial keyframe): s "
+            f"{'-' if r['s'] is None else format(r['s'], '.6f')}, {r['branch']}, {r['ms']:.1f} ms (host clock)")
+    loops = [e for e in events if e["kind"] == "loop"]
+    for j, ev in enumerate(loops):
+        dist, deg = revisit(Rs, ts, ev)
+        g = rec["graph"][j] if j < len(rec["graph"]) else {}
+        b = rec["gba"][j] if j < len(rec["gba"]) else {}
+        log(f"{name}: loop keyframe {ev['kf']} (frame {ev['kf_frame']}) -> {ev['match']} (frame {ev['match_frame']}), "
+            f"Sim(3) scale {ev['scale']:.6f}; ground truth {dist:.3f} m, optical axes {deg:.1f} deg apart; essential "
+            f"graph {g.get('mode')} in {g.get('ms', float('nan')):.1f} ms, across it the largest move of a body gravity "
+            f"direction {g.get('gravity_moved', float('nan')):.2e} and of a vertex scale "
+            f"{g.get('scale_moved', float('nan')):.2e}; global BA {b.get('kind')} ({b.get('where')}) "
+            f"{b.get('ms', float('nan')):.1f} ms (host clock)")
+    return loops
+
+
+def phase_inertial_long(dev, n_frames, gate):
+    """The inertial path past its init on the card (module docstring, phase
+    17). Returns (describe launches, the describe kernel's angle error, a
+    report)."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from orbslam3_cpp_fork_tpu_torch.ops.orb import OrbParams
+    from orbslam3_cpp_fork_tpu_torch.optim import inertial as vi
+    from orbslam3_cpp_fork_tpu_torch.optim import pose_graph
+    from orbslam3_cpp_fork_tpu_torch.runtime.tracker import Tracker
+    from orbslam3_cpp_fork_tpu_torch.utils.evaluation import ate_rmse
+
+    scene, stamps, Rs, ts, frames, rows = render_inertial_long(n_frames=n_frames)
+    worst = hold_describe(f"the inertial long scene on EuRoC's rig ({VIL_SIZE[0]}x{VIL_SIZE[1]}, {VIL_FEATURES} "
+                          "features)", *frame_levels(dev, frames[0], OrbParams(n_features=VIL_FEATURES)))
+
+    # Part A: the synchronous tracker over every frame.
+    trk = Tracker(inertial_long_config(scene), dev)
+    rec = record_inertial_path(trk, vi, pose_graph, "optimize_pose_graph")
+    read = counted(dev)
+    stages, kf_frames, ms, n_tracked = {}, [], [], 0
+    t0 = time.perf_counter()
+    for i, f in enumerate(frames):
+        n_kf = trk.n_kf_inserted
+        t1 = time.perf_counter()
+        n_tracked += trk.track(f, float(stamps[i]), imu=rows[i]) is not None
+        ms.append(1e3 * (time.perf_counter() - t1))
+        stages.setdefault(int(trk.map.imu_stage), i)
+        if trk.n_kf_inserted > n_kf:
+            kf_frames.append(i)
+    secs = time.perf_counter() - t0
+    cnt, host = read()
+    ts_est, Twc = trk.export_trajectory()
+    ate = ate_rmse(ts_est, Twc[:, :3, 3], stamps, ts)
+    pos = Twc[:, :3, 3] - Twc[:, :3, 3].mean(0)
+    n_z = abs(float(np.linalg.svd(pos)[2][2][2]))
+    loops = inertial_path_lines("inertial long A", rec, Rs, ts, trk.loop_closer.events)
+    names = {1: "IMU init", 2: "VIBA1", 3: "VIBA2"}
+    log("inertial long A: " + "; ".join(f"{names[s]} at frame {f} ({stamps[f]:.1f} s)" for s, f in sorted(stages.items())
+                                         if s in names)
+        + "; FullInertialBA calls (frame, priors g/a, iterations, ms): "
+        + ", ".join(f"({r['frame']}, {r['prior_g']:g}/{r['prior_a']:g}, {r['iters']}, {r['ms']:.1f})" for r in rec["fiba"]))
+    viba2 = stages.get(3)
+    ref_at = next((j for j, f in enumerate(kf_frames) if f >= VIL_JAX_VIBA2_FRAME), len(kf_frames))
+    viba2_kfs = abs(kf_frames.index(viba2) - ref_at) if viba2 in kf_frames else None
+    bound = max(VIL_JAX_ATE_M, VIL_PORT_ATE_M) + TOL_LOOP_ATE_M
+    n = len(frames)
+    report = dict(frames=n, tracked=n_tracked, stages={names[s]: f for s, f in stages.items() if s in names},
+                  refinements=rec["refine"], fiba=rec["fiba"], graphs=rec["graph"], gbas=rec["gba"],
+                  loops=[dict(kf=e["kf"], match=e["match"], kf_frame=e["kf_frame"], match_frame=e["match_frame"],
+                              deg=revisit(Rs, ts, e)[1]) for e in loops],
+                  ate=ate.rmse_scaled, scale=ate.scale, n_z=n_z, launches_a=cnt, seconds_a=secs,
+                  ms_median=float(np.median(ms)), ms_p99=float(np.percentile(ms, 99)))
+    log(f"inertial long A (IMU_MONOCULAR on EuRoC's T_b_c1, {n} frames at {VIL_SIZE[0]}x{VIL_SIZE[1]}, "
+        f"{VIL_FEATURES} features, synchronous, loop closing on): state {trk.state.name}, IMU stage "
+        f"{trk.map.imu_stage}, tracked {n_tracked}/{n}; keyframes {trk.map.n_keyframes()}, landmarks "
+        f"{trk.map.n_landmarks()}; VIBA2 at frame {viba2}, the reference's CPU run at {VIL_JAX_VIBA2_FRAME} "
+        f"({viba2_kfs} keyframes apart); ScaleRefinement calls {len(rec['refine'])} (the reference's CPU run: "
+        f"{VIL_JAX_REFINEMENTS}); loops {len(loops)}, global BAs after them {len(rec['gba'])}; scale-aligned ATE "
+        f"{ate.rmse_scaled:.6f} m (scale {ate.scale:.4f}) over {ate.n_pairs} poses, bound max({VIL_JAX_ATE_M:.6f}, "
+        f"{VIL_PORT_ATE_M:.6f}) + {TOL_LOOP_ATE_M} = {bound:.6f} m; plane normal |n_z| {n_z:.4f}; "
+        f"{np.median(ms):.1f} ms a frame median, {np.percentile(ms, 99):.1f} ms p99, {secs:.1f} s in all (host clock); "
+        f"describe launches {cnt}")
+    if cnt != n or host != n:
+        fail(f"inertial long A: orb_describe ran {cnt} times on the card ({host} by the wrapper) for {n} frames")
+    for g in rec["graph"]:
+        if g["mode"] != "4dof" or not (g["gravity_moved"] < VIL_GRAVITY_TOL and g["scale_moved"] < VIL_GRAVITY_TOL):
+            fail(f"inertial long A: an essential graph in mode {g['mode']} moved a body gravity direction by "
+                 f"{g['gravity_moved']:.3g} and a vertex scale by {g['scale_moved']:.3g} (4dof, < {VIL_GRAVITY_TOL})")
+    if len(rec["gba"]) != len(loops) or any(b["kind"] != "inertial" for b in rec["gba"]):
+        fail(f"inertial long A: global BAs after the {len(loops)} loops: {[b['kind'] for b in rec['gba']]} (one "
+             "inertial each required)")
+    if gate:
+        if trk.state.name != "OK" or not n_tracked > VIL_MIN_TRACKED * n:
+            fail(f"inertial long A: state {trk.state.name}, {n_tracked} of {n} tracked (> {VIL_MIN_TRACKED} required)")
+        if trk.map.imu_stage != 3 or viba2_kfs is None or viba2_kfs > 1:
+            fail(f"inertial long A: IMU stage {trk.map.imu_stage}, VIBA2 at frame {viba2}, {viba2_kfs} keyframes from "
+                 f"the reference's frame {VIL_JAX_VIBA2_FRAME} (within one required)")
+        if len(rec["refine"]) != VIL_JAX_REFINEMENTS:
+            fail(f"inertial long A: ScaleRefinement called {len(rec['refine'])} times, the reference "
+                 f"{VIL_JAX_REFINEMENTS}")
+        if not loops or any(revisit(Rs, ts, e)[1] > LOOP_REVISIT_DEG for e in loops):
+            fail(f"inertial long A: loops {[(e['kf_frame'], e['match_frame']) for e in loops]}: none, or not a true "
+                 f"revisit (optical axes within {LOOP_REVISIT_DEG} deg required)")
+        if not abs(ate.scale - 1.0) < VI_SCALE_TOL or not n_z > VI_GRAVITY_NZ:
+            fail(f"inertial long A: scale {ate.scale:.4f}, plane normal |n_z| {n_z:.4f}")
+        if not ate.rmse_scaled <= bound:
+            fail(f"inertial long A: scale-aligned ATE {ate.rmse_scaled:.6f} m > {bound:.6f} m")
+
+    # Part B: the mono_inertial_euroc driver in the default mode on an
+    # EuRoC tree whose settings carry EuRoC's T_b_c1. The default mode can
+    # lose the map and spawn another (both implementations do on this
+    # scene), so the IMU stage is the highest any map reached and the ATE
+    # and scale are each map's own (the merge phase's part B rule).
+    k = min(VIL_DRIVER_FRAMES, n)
+    with tempfile.TemporaryDirectory(dir=os.environ.get("TMPDIR")) as tmp:
+        root = Path(tmp)
+        write_euroc_tree(root, "BOB", stamps[:k], frames[:k], imu_rows=np.concatenate(rows[1:k]))
+        euroc_settings(root / "vil.yaml", scene, VI_FPS, imu_yaml(EUROC_T_B_C1))
+        spied, recs, top = [], [], dict(stage=0, frame=None, n=0)
+
+        def spy(system):
+            trk_s = system.tracker
+            spied.append(spy_dead_reckoned(trk_s))
+            recs.append(record_inertial_path(trk_s, vi, pose_graph, "optimize_pose_graph"))
+            real = system.track_monocular
+
+            def track(img, t, imu=None):
+                out = real(img, t, imu=imu)
+                if trk_s.map.imu_stage > top["stage"]:
+                    top.update(stage=int(trk_s.map.imu_stage), frame=top["n"])
+                top["n"] += 1
+                return out
+
+            system.track_monocular = track
+
+        read = counted(dev)
+        t0 = time.perf_counter()
+        system = run_driver("mono_inertial_euroc", [str(root / "vil.yaml"), str(root), "BOB", "--traj",
+                                                    str(root / "t.txt"), "--kf-traj", str(root / "kf.txt"),
+                                                    "--log-level", "WARNING", "--device", str(dev)], spy=spy)
+        secs_b = time.perf_counter() - t0
+        cnt_b, host_b = read()
+        ts_e, _, tracked = driver_poses("inertial long B", root / "t.txt", k, 1.0 / VI_FPS, spied[0])
+    trk_b = system.tracker
+    ts_x, Twc_x = trk_b.export_trajectory()
+    keep = np.asarray([int(round(t * VI_FPS)) not in spied[0] for t in ts_x], bool)
+    per_map = per_map_ates(trk_b, ts_x, Twc_x, keep, stamps[:k], ts[:k])
+    loops_b = inertial_path_lines("inertial long B", recs[0], Rs, ts, trk_b.loop_closer.events)
+    bg = sum(b["kind"] == "inertial" and b["where"] == "background" for b in recs[0]["gba"])
+    bound_b = ASYNC_ATE_FACTOR * ate.rmse_scaled + ASYNC_ATE_SLACK_M
+    report.update(frames_b=k, exported_b=len(ts_e), tracked_b=int(tracked.sum()), stage_b=top["stage"],
+                  stage_b_frame=top["frame"], maps_b={m: dict(ate=r.rmse_scaled, scale=r.scale, n=r.n_pairs)
+                                                      for m, r in per_map.items()},
+                  lost_b=int(trk_b.n_lost_events), loops_b=len(loops_b), background_gbas_b=bg, launches_b=cnt_b,
+                  seconds_b=secs_b)
+    log(f"inertial long B (mono_inertial_euroc with IMU.T_b_c1 = EuRoC's, default mode, {k} frames): {len(ts_e)} poses "
+        f"exported, {int(tracked.sum())} tracked while OK; loss events {trk_b.n_lost_events}, maps "
+        f"{len(trk_b.atlas.maps)}; the highest IMU stage {top['stage']} (first at frame {top['frame']}; VIBA2 "
+        f"{'reached' if top['stage'] >= 3 else 'not reached'}; the reference driver's lowest in three CPU runs: "
+        f"{VIL_JAX_DRIVER_STAGE}); per map with >= 10 tracked poses, scale-aligned ATE and scale: "
+        + ", ".join(f"map {m} {r.rmse_scaled:.6f} m, {r.scale:.4f} over {r.n_pairs}" for m, r in per_map.items())
+        + f"; bound {ASYNC_ATE_FACTOR} x {ate.rmse_scaled:.6f} + {ASYNC_ATE_SLACK_M} = {bound_b:.6f} m; loops on the "
+        f"loop thread {len(loops_b)} (the reference driver's fewest in three CPU runs: {VIL_JAX_DRIVER_LOOPS}); "
+        f"background inertial global BAs {bg}; {secs_b:.1f} s; describe launches {cnt_b}")
+    if cnt_b != k or host_b != k:
+        fail(f"inertial long B: orb_describe ran {cnt_b} times on the card ({host_b} by the wrapper) for {k} frames")
+    if gate:
+        if top["stage"] < VIL_JAX_DRIVER_STAGE:
+            fail(f"inertial long B: the highest IMU stage {top['stage']} (>= {VIL_JAX_DRIVER_STAGE} required)")
+        if not per_map:
+            fail("inertial long B: no map holds 10 poses tracked while OK")
+        for m, r in per_map.items():
+            if not abs(r.scale - 1.0) < VIL_DRIVER_SCALE_TOL or not r.rmse_scaled <= bound_b:
+                fail(f"inertial long B: map {m}: scale {r.scale:.4f} (|scale - 1| < {VIL_DRIVER_SCALE_TOL} required), "
+                     f"scale-aligned ATE of the tracked poses {r.rmse_scaled:.6f} m (<= {bound_b:.6f} m required)")
+        if len(loops_b) < VIL_JAX_DRIVER_LOOPS:
+            fail(f"inertial long B: {len(loops_b)} loops (>= {VIL_JAX_DRIVER_LOOPS} required)")
+    return cnt + cnt_b, worst, report
+
+
 def rot_err(Ra, Rb):
     """Largest angle (rad) between corresponding rotations, in float64 from
     the chord ||Ra - Rb||_F = 2 sqrt(2) sin(angle / 2) (arccos of the trace
@@ -3580,7 +4021,7 @@ def phase_compare_routes(dev, make, frames, block=10):
             f"(alternating blocks of {block})")
 
 
-def parallel_part(dev, frames, long_state=None):
+def parallel_part(dev, frames, long_state=None, started=None):
     """The drivers and long phases: run in a process of their own, beside
     the other phases (the paths are host-bound and the host has cores to
     spare); the last line of output is their record."""
@@ -3591,22 +4032,35 @@ def parallel_part(dev, frames, long_state=None):
     t0 = time.perf_counter()
     long_launches, long_report = phase_long(dev, LONG_FRAMES if gate else min(frames, LONG_FRAMES), gate, long_state)
     log(f"smoke: long phase {time.perf_counter() - t0:.1f} s")
+    if started is not None:
+        log(f"smoke: this process (drivers and long) {time.perf_counter() - started:.1f} s from its start")
     log(json.dumps({"parallel": {
         "launches_drivers": drivers_launches, "launches_long": long_launches, "describe_err": drivers_err,
         "launches_compute_descriptors": cd_launches, "drivers": drivers, "long": long_report,
     }}))
 
 
-def start_parallel_part(frames, long_state=None):
-    """Start `parallel_part` in a child process (output in temporary files;
-    killed at exit if still running)."""
+def inertial_long_part(dev, frames, started=None):
+    """The inertial long phase: run in a second process of its own, beside
+    the other phases; the last line of output is its record."""
+    gate = frames == FRAMES
+    t0 = time.perf_counter()
+    launches, err, report = phase_inertial_long(dev, VIL_FRAMES if gate else min(frames, VIL_FRAMES), gate)
+    log(f"smoke: inertial long phase {time.perf_counter() - t0:.1f} s")
+    if started is not None:
+        log(f"smoke: this process (inertial long) {time.perf_counter() - started:.1f} s from its start")
+    log(json.dumps({"inertial_long": {"launches": launches, "describe_err": err, "report": report}}))
+
+
+def start_parallel_part(frames, part="--parallel-part", extra=()):
+    """Start a part (`parallel_part` or `inertial_long_part`) in a child
+    process (output in temporary files; killed at exit if still running)."""
     import atexit
     import tempfile
 
     out, err = tempfile.TemporaryFile(mode="w+"), tempfile.TemporaryFile(mode="w+")
-    extra = ["--long-state", long_state] if long_state else []
-    proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--parallel-part", "--frames", str(frames),
-                             *extra], stdout=out, stderr=err, text=True)
+    proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), part, "--frames", str(frames), *extra],
+                            stdout=out, stderr=err, text=True)
 
     def stop():
         if proc.poll() is None:
@@ -3614,13 +4068,13 @@ def start_parallel_part(frames, long_state=None):
             proc.wait()
 
     atexit.register(stop)
-    return proc, out, err
+    return proc, out, err, time.perf_counter()
 
 
-def collect_parallel_part(child, deadline):
+def collect_parallel_part(child, deadline, key="parallel", name="the drivers and long phases"):
     """Wait for the child until `deadline` (perf_counter), print its output
-    and return its record; its failure fails the smoke."""
-    proc, out, err = child
+    and its wall time and return its record; its failure fails the smoke."""
+    proc, out, err, started = child
     try:
         rc = proc.wait(timeout=max(1.0, deadline - time.perf_counter()))
     except subprocess.TimeoutExpired:
@@ -3632,10 +4086,11 @@ def collect_parallel_part(child, deadline):
     lines, errs = out.read().splitlines(), err.read()
     for line in lines[:-1]:
         log(line)
-    if rc != 0 or not lines or not lines[-1].startswith('{"parallel"'):
+    log(f"smoke: the process of {name} collected {time.perf_counter() - started:.1f} s after its start (host clock)")
+    if rc != 0 or not lines or not lines[-1].startswith('{"' + key + '"'):
         sys.stderr.write(errs[-8000:])
-        fail(f"the drivers and long phases' process ended with {'a timeout' if rc is None else f'exit {rc}'}")
-    return json.loads(lines[-1])["parallel"]
+        fail(f"the process of {name} ended with {'a timeout' if rc is None else f'exit {rc}'}")
+    return json.loads(lines[-1])[key]
 
 
 def main(argv=None) -> int:
@@ -3648,6 +4103,8 @@ def main(argv=None) -> int:
                     help="also time the tracker with the describe stage by either route, in alternating blocks")
     ap.add_argument("--parallel-part", action="store_true",
                     help="run only the drivers and long phases (the smoke runs them so, in a child process)")
+    ap.add_argument("--inertial-long-part", action="store_true",
+                    help="run only the inertial long phase (the smoke runs it so, in a second child process)")
     ap.add_argument("--long-state", metavar="PATH",
                     help="also write what keyframe culling reads of the long run's final map to PATH (.npz; "
                          "tests/data/long_card_cull_state.npz was written so)")
@@ -3667,11 +4124,14 @@ def main(argv=None) -> int:
     from orbslam3_cpp_fork_tpu_torch.ops.orb import OrbParams
 
     t_smoke = time.perf_counter()
-    if args.parallel_part:
+    if args.parallel_part or args.inertial_long_part:
         dev = get_device()
         for name in _kernels.build_all():  # built already by the parent: loaded
             _kernels.load(name)
-        parallel_part(dev, args.frames, args.long_state)
+        if args.parallel_part:
+            parallel_part(dev, args.frames, args.long_state, t_smoke)
+        else:
+            inertial_long_part(dev, args.frames, t_smoke)
         return 0
     card = card_line()
     log(f"device: {card}")
@@ -3688,7 +4148,8 @@ def main(argv=None) -> int:
         for line in ptxas.strip().splitlines():
             log(f"build: {name}: {line.strip()}")
 
-    child = start_parallel_part(args.frames, args.long_state)
+    child = start_parallel_part(args.frames, extra=["--long-state", args.long_state] if args.long_state else [])
+    child_vil = start_parallel_part(args.frames, "--inertial-long-part")
     laps = [time.perf_counter()]
 
     def lap(name):
@@ -3730,6 +4191,7 @@ def main(argv=None) -> int:
     lap("scale")
     log(f"smoke: the phases of this process ended at {time.perf_counter() - t_smoke:.1f} s")
     par = collect_parallel_part(child, t_smoke + PARALLEL_DEADLINE_S)
+    vil = collect_parallel_part(child_vil, t_smoke + PARALLEL_DEADLINE_S, "inertial_long", "the inertial long phase")
     if args.compare_routes:
         phase_compare_routes(dev, make, frames)
     if args.profile:
@@ -3751,18 +4213,21 @@ def main(argv=None) -> int:
             # of entry()'s fn; one a frame and two a pair through the
             # drivers of the shell phase; each counted from 0.
             # One a frame and two a pair through the drivers phase's ten
-            # drivers, one a frame of the long phase (a process of their own).
+            # drivers, one a frame of the long phase (a process of their own),
+            # one a frame of the inertial long phase's parts A and B (a
+            # second process).
             "launches": describe_launches + slam_launches + async_launches + loop_launches + stereo_launches
             + rgbd_launches + merge_launches + inertial_launches + entry_launches + shell_launches
-            + par["launches_drivers"] + par["launches_long"],
+            + par["launches_drivers"] + par["launches_long"] + vil["launches"],
             "launches_localization": describe_launches, "launches_slam": slam_launches,
             "launches_async": async_launches, "launches_loop": loop_launches,
             "launches_stereo": stereo_launches, "launches_rgbd": rgbd_launches,
             "launches_merge": merge_launches, "launches_inertial": inertial_launches,
             "launches_entry": entry_launches, "launches_shell": shell_launches,
             "launches_drivers": par["launches_drivers"], "launches_long": par["launches_long"],
+            "launches_inertial_long": vil["launches"],
             "max_abs_err": max(describe["max_abs_err"], stereo_describe_err, merge_describe_err, inertial_describe_err,
-                               par["describe_err"]),
+                               par["describe_err"], vil["describe_err"]),
             "ms": describe["ms"], "plain_ms": describe["plain_ms"],
             "bound_ms": describe["bound_ms"], "bound_by": describe["bound_by"],
             # No single PyTorch call gathers windows, sums moments and

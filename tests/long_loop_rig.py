@@ -113,7 +113,9 @@ def _decode(x, z):
     return z[x["a"]].copy()
 
 
-def save_state(S: dict, path, **meta) -> None:
+def _kfdb_from_map(S: dict) -> dict:
+    """`S` with each stored keyframe-database descriptor row that equals its
+    map keyframe's descriptors replaced by that row's number."""
     kd, m = S["kfdb"], S["map"]
     K = m["kf_valid"].shape[0]
     from_map, store = [], {}
@@ -124,9 +126,36 @@ def save_state(S: dict, path, **meta) -> None:
             from_map.append(row)
         else:
             store[row] = (d, v)
-    S = dict(S, kfdb=dict(kd, desc_store=store, desc_store_from_map=from_map))
+    return dict(S, kfdb=dict(kd, desc_store=store, desc_store_from_map=from_map))
+
+
+def _kfdb_to_map(S: dict) -> dict:
+    """The inverse of `_kfdb_from_map`, in place."""
+    kd, m = S["kfdb"], S["map"]
+    K = m["kf_valid"].shape[0]
+    for row in kd.pop("desc_store_from_map"):
+        slot = row - m["map_id"] % 16 * K
+        kd["desc_store"][row] = (m["kf_desc"][slot].copy(), m["kf_feat_valid"][slot].copy())
+    return S
+
+
+def save_states(states: dict, path, **meta) -> None:
+    """Store named snapshots (`snapshot`) and a JSON-able `meta` in one file."""
     arrays = {}
-    tree = _encode(dict(S=S, meta=meta), arrays)
+    tree = _encode(dict(S={k: _kfdb_from_map(S) for k, S in states.items()}, meta=meta), arrays)
+    np.savez_compressed(path, tree=np.frombuffer(json.dumps(tree).encode(), np.uint8), **arrays)
+
+
+def load_states(path):
+    """(named snapshots, meta) of a file written by `save_states`."""
+    with np.load(path) as z:
+        out = _decode(json.loads(z["tree"].tobytes().decode()), z)
+    return {k: _kfdb_to_map(S) for k, S in out["S"].items()}, out["meta"]
+
+
+def save_state(S: dict, path, **meta) -> None:
+    arrays = {}
+    tree = _encode(dict(S=_kfdb_from_map(S), meta=meta), arrays)
     np.savez_compressed(path, tree=np.frombuffer(json.dumps(tree).encode(), np.uint8), **arrays)
 
 
@@ -134,13 +163,7 @@ def load_state(path=STATE):
     """(snapshot, meta) of a file written by `save_state`."""
     with np.load(path) as z:
         out = _decode(json.loads(z["tree"].tobytes().decode()), z)
-    S, meta = out["S"], out["meta"]
-    kd, m = S["kfdb"], S["map"]
-    K = m["kf_valid"].shape[0]
-    for row in kd.pop("desc_store_from_map"):
-        slot = row - m["map_id"] % 16 * K
-        kd["desc_store"][row] = (m["kf_desc"][slot].copy(), m["kf_feat_valid"][slot].copy())
-    return S, meta
+    return _kfdb_to_map(out["S"]), out["meta"]
 
 
 # ---------------------------------------------------------------- capture

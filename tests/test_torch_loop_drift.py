@@ -92,7 +92,6 @@ def snapshot(trk) -> dict:
 def load_ref(trk, S):
     """The reference tracker in the state of `snapshot` (its own loaders do
     not exist; the fields are set as convert.load_* sets the port's)."""
-    import jax
     from orbslam3_cpp_fork_tpu.models import map_state as jms
     from orbslam3_cpp_fork_tpu.runtime import tracker as jt
 
@@ -116,7 +115,16 @@ def load_ref(trk, S):
                             **{k: f[k].copy() for k in convert.FRAME_ARRAYS})
     trk._seen_change_idx = st["seen_change_idx"]
     trk._dev_local = None
-    db, kd = trk.kfdb, S["kfdb"]
+    load_ref_place_recognition(trk, S["kfdb"], S["loop"])
+
+
+def load_ref_place_recognition(trk, kd, ls):
+    """The reference tracker's keyframe database and loop state from
+    `convert.kfdb_to_numpy` / `loop_state_to_numpy` (the counterpart of
+    `convert.load_place_recognition`)."""
+    import jax
+
+    db = trk.kfdb
     db.hists[...] = kd["hists"]
     db.present[...] = kd["present"]
     db.n_refreshes = kd["n_refreshes"]
@@ -127,7 +135,7 @@ def load_ref(trk, S):
     if kd["codebook"] is not None:
         db.codebook = kd["codebook"].astype(np.int8)
         db._cb_j = jax.device_put(db.codebook, db.device) if db.device is not None else jax.numpy.asarray(db.codebook)
-    lc, ls = trk.loop_closer, S["loop"]
+    lc = trk.loop_closer
     lc.pending, lc.last_loop_kf = ls["pending"], ls["last_loop_kf"]
     lc.loop_edges, lc.n_loops_closed = list(ls["loop_edges"]), ls["n_loops_closed"]
 
