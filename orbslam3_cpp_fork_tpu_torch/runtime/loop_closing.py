@@ -295,6 +295,10 @@ class LoopCloser:
         # Whole-map BA after a correction, bound by the Tracker; called as
         # hook(kf, candidate).
         self.global_ba_hook = None
+        # Bound by the Tracker; called under the lock as hook(map, kfs,
+        # scales) after an essential graph that rescaled keyframes (Sim(3)
+        # mode), with each keyframe's corrective scale.
+        self.rescale_hook = None
         # Map mutation lock, shared with the Tracker (held through a
         # correction, as Map::mMutexMapUpdate through CorrectLoop).
         self.lock = contextlib.nullcontext()
@@ -836,3 +840,5 @@ class LoopCloser:
         # Optimized poses back as SE(3) (t / s).
         m.kf_R[order] = R_n
         m.kf_t[order] = t_n / s_n[:, None]
+        if mode == "sim3" and self.rescale_hook is not None:
+            self.rescale_hook(m, order, s_n)

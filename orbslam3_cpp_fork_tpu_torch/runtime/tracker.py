@@ -882,6 +882,7 @@ class Tracker:
                 LoopConfig(fix_scale=cfg.sensor != Sensor.MONOCULAR),
             )
             self.loop_closer.global_ba_hook = self._global_ba_after_loop
+            self.loop_closer.rescale_hook = self._rescale_trajectory_records
             self.loop_closer.lock = self.map_lock
             self.loop_closer.kf_store = self._kf_store
         # The big_change_idx this thread last rebased onto (corrections of
@@ -3871,9 +3872,16 @@ class Tracker:
             t_old_all = m.kf_t.copy()
             R_old_all[in_snap] = snap["kf_R"][in_snap]
             t_old_all[in_snap] = snap["kf_t"][in_snap]
+            # A monocular map's scale is free in the whole-map BA: records
+            # follow their keyframe's scene depth across it.
+            rescale = self.cfg.sensor == Sensor.MONOCULAR and bool(self.trajectory)
+            kfs_snap = np.nonzero(in_snap)[0]
+            depth0 = self._scene_depths(m, kfs_snap) if rescale else None
             m.kf_R[in_snap] = R_new[in_snap]
             m.kf_t[in_snap] = t_new[in_snap]
             m.lm_pos[in_snap_l] = X_new[in_snap_l]
+            if rescale:
+                self._rescale_trajectory_records(m, kfs_snap, depth0 / self._scene_depths(m, kfs_snap))
             snap_slots = np.nonzero(in_snap)[0]
             if len(new_k) and len(snap_slots):
                 counts = m.obs[snap_slots].astype(np.int32) @ m.obs[new_k].astype(np.int32).T  # (S, N)
@@ -3980,13 +3988,48 @@ class Tracker:
                 # A correction landed after this frame was tracked: its pose
                 # is pre-correction. Skip; the next frame rebases.
                 return
-            Rr, tr = self.map.kf_R[k].copy(), self.map.kf_t[k].copy()
-        # Tcr = Tcw * Trw^-1
-        R_cr = frame.R @ Rr.T
-        t_cr = frame.t - R_cr @ tr
-        self.trajectory.append(
-            (frame.frame_id, frame.timestamp, self.map.map_id, k, R_cr.copy(), t_cr.copy())
-        )
+            Rr, tr = self.map.kf_R[k], self.map.kf_t[k]
+            # Tcr = Tcw * Trw^-1, appended under the lock that corrections
+            # rewrite the records under.
+            R_cr = frame.R @ Rr.T
+            t_cr = frame.t - R_cr @ tr
+            self.trajectory.append(
+                (frame.frame_id, frame.timestamp, self.map.map_id, k, R_cr.copy(), t_cr.copy())
+            )
+
+    @staticmethod
+    def _scene_depths(m, kfs) -> np.ndarray:
+        """Median depth of each keyframe's live bound landmarks in its own
+        frame (1 where it has none)."""
+        out = np.ones(len(kfs))
+        for j, k in enumerate(kfs):
+            lm = m.kf_lm_idx[k]
+            lm = lm[lm >= 0]
+            lm = lm[m.lm_valid[lm]]
+            if len(lm):
+                out[j] = max(float(np.median(m.lm_pos[lm] @ m.kf_R[k][2] + m.kf_t[k][2])), 1e-6)
+        return out
+
+    def _rescale_trajectory_records(self, m, kfs, scales):
+        """A monocular correction moves keyframe i by a Sim(3) of scale s_i
+        (the essential graph's; the whole-map BA's, measured as the ratio
+        of i's scene depths): the map around i is magnified by 1 / s_i in
+        its camera frame. Magnify the translation of each record relative
+        to i by as much, so that the exported frame keeps its place among
+        the corrected keyframes and landmarks (the reference keeps the
+        pre-correction translation: its frames after a loop of scale s sit
+        1 / s off their keyframes' spacing, ROADMAP R25). Caller holds
+        map_lock."""
+        factor = {int(k): 1.0 / float(s) for k, s in zip(kfs, scales) if float(s) != 1.0}
+        if not factor:
+            return
+        for i, (fid, t, map_id, kref, R_cr, t_cr) in enumerate(self.trajectory):
+            mid, k = map_id, kref
+            while (mid, k) in self._kf_alias:
+                mid, k = self._kf_alias[(mid, k)]
+            f = factor.get(k) if mid == m.map_id else None
+            if f is not None:
+                self.trajectory[i] = (fid, t, map_id, kref, R_cr, (t_cr * f).astype(t_cr.dtype))
 
     def export_trajectory(self):
         """Return (timestamps, Twc 4x4 array), TUM-style camera-to-world

@@ -18,6 +18,7 @@ That state is stored in tests/data/long_cpu_loop_state.npz; rewrite it with
 
 from __future__ import annotations
 
+import hashlib
 import json
 import sys
 from pathlib import Path
@@ -77,22 +78,24 @@ def loaded(impl, scene, S):
 # ---------------------------------------------------------------- storage
 # A snapshot is a tree of dicts, lists, tuples, numbers, strings, None and
 # arrays. It is stored as one JSON description and its arrays; boolean
-# arrays bit-packed, and each stored keyframe-database descriptor row that
-# equals its map keyframe's descriptors stored as that slot.
+# arrays bit-packed, equal arrays stored once, and each stored
+# keyframe-database descriptor row that equals its map keyframe's
+# descriptors stored as that slot.
 
 
-def _encode(x, arrays):
+def _encode(x, arrays, seen=None):
+    seen = {} if seen is None else seen
     if isinstance(x, dict):
-        return {"d": [[_encode(k, arrays), _encode(v, arrays)] for k, v in x.items()]}
+        return {"d": [[_encode(k, arrays, seen), _encode(v, arrays, seen)] for k, v in x.items()]}
     if isinstance(x, (list, tuple)):
-        return {"l" if isinstance(x, list) else "t": [_encode(v, arrays) for v in x]}
+        return {"l" if isinstance(x, list) else "t": [_encode(v, arrays, seen) for v in x]}
     if isinstance(x, np.ndarray):
-        name = f"a{len(arrays)}"
-        if x.dtype == bool:
-            arrays[name] = np.packbits(x)
-            return {"b": name, "shape": list(x.shape)}
-        arrays[name] = x
-        return {"a": name}
+        packed = x.dtype == bool
+        data = np.packbits(x) if packed else x
+        key = (x.dtype.str, x.shape, hashlib.sha1(np.ascontiguousarray(data)).hexdigest())
+        name = seen.setdefault(key, f"a{len(arrays)}")
+        arrays[name] = data
+        return {"b": name, "shape": list(x.shape)} if packed else {"a": name}
     if isinstance(x, np.generic):
         return x.item()
     return x
@@ -113,15 +116,22 @@ def _decode(x, z):
     return z[x["a"]].copy()
 
 
+def _maps_of(S: dict) -> dict:
+    """{map namespace: map arrays} of a snapshot: its one map, or every map
+    of its Atlas (`inertial_merge_rig.snapshot`)."""
+    maps = [S["map"]] if "map" in S else S["atlas"]["maps"]
+    return {int(m["map_id"]) % 16: m for m in maps}
+
+
 def _kfdb_from_map(S: dict) -> dict:
     """`S` with each stored keyframe-database descriptor row that equals its
     map keyframe's descriptors replaced by that row's number."""
-    kd, m = S["kfdb"], S["map"]
-    K = m["kf_valid"].shape[0]
+    kd, maps = S["kfdb"], _maps_of(S)
+    K = next(iter(maps.values()))["kf_valid"].shape[0]
     from_map, store = [], {}
     for row, (d, v) in kd["desc_store"].items():
-        slot = row - m["map_id"] % 16 * K
-        if 0 <= slot < K and m["kf_valid"][slot] and np.array_equal(d, m["kf_desc"][slot]) \
+        m, slot = maps.get(row // K), row % K
+        if m is not None and m["kf_valid"][slot] and np.array_equal(d, m["kf_desc"][slot]) \
                 and np.array_equal(v, m["kf_feat_valid"][slot]):
             from_map.append(row)
         else:
@@ -131,10 +141,10 @@ def _kfdb_from_map(S: dict) -> dict:
 
 def _kfdb_to_map(S: dict) -> dict:
     """The inverse of `_kfdb_from_map`, in place."""
-    kd, m = S["kfdb"], S["map"]
-    K = m["kf_valid"].shape[0]
+    kd, maps = S["kfdb"], _maps_of(S)
+    K = next(iter(maps.values()))["kf_valid"].shape[0]
     for row in kd.pop("desc_store_from_map"):
-        slot = row - m["map_id"] % 16 * K
+        m, slot = maps[row // K], row % K
         kd["desc_store"][row] = (m["kf_desc"][slot].copy(), m["kf_feat_valid"][slot].copy())
     return S
 
