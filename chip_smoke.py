@@ -306,6 +306,40 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                lose this scene's maps in this mode, C6), >= 2 maps seen, at
                least the reference driver's fewest merges, each map's ATE
                of the poses tracked while OK <= 2 x part A's + 0.02 m.
+ 19. stereo inertial long - (the third child process, after phase 18)
+               IMU_STEREO past its init: the inertial long scene's
+               bobbing circle, clock and rig IMU.T_b_c1 as rectified pairs on
+               the settings of ORB-SLAM3's rectified EuRoC stereo-inertial
+               yaml (752x480, 1,200 features, bf = 0.110078 fx, ThDepth 35
+               baselines = 3.85 m) on a room-sized ring (SIL_RING: about
+               half the points a frame sees within ThDepth), the reference's
+               default ladder (IMU init at 1 s with 10 keyframes, fixed
+               scale; VIBA1 at 5 s; VIBA2 at 15 s), loop closing and the
+               global BA on. First the fused describe kernel against its
+               plain version on both images of the first pair. Part A, the
+               synchronous tracker over all 360 pairs: state OK, > 90%
+               tracked, one IMU init with fix_scale and scale exactly 1,
+               stage 3 with VIBA2 within one keyframe of the reference's CPU
+               frame, ScaleRefinement never called, at least one loop, each a
+               true revisit, each 4dof graph moving no body gravity
+               direction and no vertex scale by VIL_GRAVITY_TOL, each
+               followed by one FullInertialBA(7) over stereo rows, unscaled
+               ATE within max(JAX, port on the CPU) + 10 mm, |scale - 1| <
+               0.05, |n_z| > 0.98, two describe launches a pair; it prints
+               the frames and seconds of IMU init, VIBA1 and VIBA2 with each
+               whole-chain solve's route (dense or sparse), keyframes and
+               stereo-row share, each loop's keyframes, mode, revisit angle
+               and host ms of the graph and of FullInertialBA(7), ms a pair.
+               Part B: stereo_inertial_euroc in the default mode on an EuRoC
+               tree of the first SIL_DRIVER_PAIRS pairs (File.version 1.0
+               settings with 1,200 features, Camera.bf, Stereo.ThDepth 35 and
+               IMU.T_b_c1): no thread error, > 80% exported in order, the
+               highest IMU stage any map reached >= the reference driver's
+               lowest in three CPU runs, for each map with >= 10 poses
+               tracked while OK |scale - 1| < 0.05 and unscaled ATE <= 2 x
+               part A's + 0.02 m, at least the reference driver's fewest
+               loops; it prints the losses, maps, loops and each background
+               inertial global BA with its stereo-row count.
 `--profile N` adds a torch.profiler pass over N frames (kernel launches and
 device time per frame, host time per stage) and over the SLAM phase's
 tracked frames and mapping steps, `--compare-routes` a timing of the tracker
@@ -554,6 +588,44 @@ VIM_JAX_DRIVER_MERGES = 0
 # three CPU runs less the loop phase's margin for thread timing, not at
 # 80% of the frames.
 VIM_JAX_DRIVER_EXPORTED = 319
+# Stereo inertial long phase (phase 19): the inertial long scene's
+# trajectory, clock and rig as rectified pairs on the published settings of
+# ORB-SLAM3's rectified EuRoC stereo(-inertial) yaml
+# (Examples/Stereo-Inertial/EuRoC.yaml before v1.0): 752x480,
+# ORBextractor.nFeatures 1,200, Camera.bf 47.9064 at fx 435.2047 (a
+# baseline of 0.110078 m), ThDepth 35 (baselines), IMU.T_b_c1 = cam0's;
+# the reference's default ladder, loop closing and the global BA on. The
+# ring is resized to a room around the 2 m circle (depths ~1.5-6 m) so that
+# about half the points a frame sees lie within th_depth = 3.85 m (the
+# default ring's 8-14 m puts every point beyond it, PERF.md section 4);
+# its points are raised to 4,000 to keep the default ring's ~420 in view.
+SIL_FRAMES = 360
+SIL_SIZE = (752, 480)
+SIL_FEATURES = 1200
+SIL_BASELINE = 0.110078
+SIL_TH_DEPTH = 35.0
+SIL_SEED = VIL_SEED
+SIL_RING = dict(r_inner=3.5, r_outer=8.0, half_height=2.5, n_points=4000)
+# Part B: pairs of the default-mode driver run, cut for the smoke's time
+# (a run with all 220 took 985.4 s on the card's host): the reference
+# driver reaches neither VIBA2 nor a revisit in 220 pairs, and the first
+# 150 hold VIBA1 (pair 51-56), the loss at 66-67, LOST at 116-117 and the
+# spawned map's first pairs.
+SIL_DRIVER_PAIRS = 150
+# CPU runs of part A's inputs, synchronous (pytest -m slow -s
+# tests/test_torch_stereo_inertial_long_e2e.py -k full_width): the
+# reference's and the port's unscaled ATE and the reference's VIBA2 frame;
+# and the reference driver's lowest highest-IMU-stage and fewest loops over
+# three CPU runs of part B's tree in the default mode (-k driver).
+SIL_JAX_ATE_M = 0.011955848932748026
+SIL_PORT_ATE_M = 0.0075287261807108815
+SIL_JAX_VIBA2_FRAME = 151
+# In the default mode on the CPU the reference's driver (three runs of 220
+# pairs) loses its map at pair 66-67, 15 pairs after VIBA1, in all three
+# runs (ROADMAP C6), and the map it spawns reaches VIBA1 again: its highest
+# IMU stage is 2 and it closes no loop.
+SIL_JAX_DRIVER_STAGE = 2
+SIL_JAX_DRIVER_LOOPS = 0
 # Entry phase: the card's (R2, t2) against the same fn on CPU inputs.
 ENTRY_TOL = 1e-3
 # Shell phase: the drivers run in-process on EuRoC-layout trees written here.
@@ -2243,13 +2315,14 @@ def bob_camera(t, Tbc=None):
     return (Rwb64 @ T[:3, :3]).astype(np.float32), (p + Rwb64 @ T[:3, 3]).astype(np.float32)
 
 
-def render_inertial(width, height, stereo=False, n_frames=None, ring=None, render=True, Tbc=None, seed=5):
+def render_inertial(width, height, stereo=False, n_frames=None, ring=None, render=True, Tbc=None, seed=5,
+                    baseline=STEREO_BASELINE):
     """The scene of tests/test_vi_tracking_e2e.py (make_ring_scene(seed=5),
     or another `seed`, its ring resized by `ring`) at width x height over
     `n_frames` frames at VI_FPS: stamps, ground-truth camera poses
     (`bob_camera` with the rig `Tbc`), uint8 frames (or (left, right) pairs
-    of the 0.2 m rig; None unless `render`) and each frame's IMU rows (the
-    body's; None for the first)."""
+    of a rig of `baseline` m; None unless `render`) and each frame's IMU
+    rows (the body's; None for the first)."""
     import numpy as np
 
     from orbslam3_cpp_fork_tpu_torch.datasets import synthetic
@@ -2262,7 +2335,7 @@ def render_inertial(width, height, stereo=False, n_frames=None, ring=None, rende
     def img(R, t):
         return synthetic.to_u8(synthetic.render_frame(scene, R, t))
 
-    frames = [(img(R, t), img(*synthetic.stereo_right_pose(R, t, STEREO_BASELINE))) if stereo else img(R, t)
+    frames = [(img(R, t), img(*synthetic.stereo_right_pose(R, t, baseline))) if stereo else img(R, t)
               for R, t in zip(Rs, ts)] if render else None
     rows = [None] + [bob_imu_rows(stamps[i - 1], stamps[i]) for i in range(1, n_frames)]
     return scene, stamps, Rs, ts, frames, rows
@@ -2322,26 +2395,90 @@ def record_inertial_path(trk, vi, pose_graph, solver):
       keyframe's gravity direction in its body frame, Rwb^T e_z, and of a
       vertex scale across it, host ms);
     - "gba": every global BA after a loop (keyframe, "inertial" or
-      "visual", "inline" or "background", host ms of the request)."""
+      "visual", "inline" or "background", host ms of the request);
+    - "init": every IMU initialization (keyframe, its frame, fix_scale,
+      whether it took, the scale and the gravity rotation Ryw it applied to
+      the map, the largest change of a keyframe centre's or landmark's
+      distance from the world origin across that re-alignment, host ms);
+    - "bg": every background inertial global BA (keyframe, its frame).
+    A FullInertialBA's and a background inertial global BA's entry also
+    holds its whole-chain problem: keyframes optimized, route ("dense" up
+    to vi_full_kf_cap keyframes, else "sparse"), observation rows and
+    stereo rows."""
+    import threading
+
     import numpy as np
 
     from orbslam3_cpp_fork_tpu_torch.optim.pose_graph import FREE_DIMS
 
-    rec = dict(fiba=[], refine=[], graph=[], gba=[])
-    in_gba = [False]
+    rec = dict(fiba=[], refine=[], graph=[], gba=[], init=[], bg=[])
+    in_gba, builds = [False], threading.local()  # builds.got: this thread's recorded whole-chain builds
     Rbc = np.asarray(trk.Rbc, np.float64) if getattr(trk, "Rbc", None) is not None else np.eye(3)
 
     def wrap(obj, name, fn):
         real = getattr(obj, name)
         setattr(obj, name, lambda *a, **kw: fn(real, *a, **kw))
 
+    def build(real, opt_kfs, *a, **kw):
+        out = real(opt_kfs, *a, **kw)
+        if getattr(builds, "got", None) is not None:
+            n = len(dict.fromkeys(int(x) for x in opt_kfs))
+            v = st = np.zeros(0, bool)
+            if out is not None:
+                v = _host(out[0].obs_valid).astype(bool)
+                st = v & _host(out[0].obs_stereo).astype(bool)
+            builds.got.append(dict(kfs=n, route="sparse" if n > trk.cfg.vi_full_kf_cap else "dense",
+                                   rows=int(v.sum()), stereo_rows=int(st.sum())))
+        return out
+
+    def with_build(real, *a, **kw):
+        """Call `real` and return (its output, its first whole-chain build's
+        stats or {})."""
+        builds.got = got = []
+        try:
+            out = real(*a, **kw)
+        finally:
+            builds.got = None
+        return out, (got[0] if got else {})
+
     def fiba(real, k, prior_g, prior_a, iters=15):
         t0 = time.perf_counter()
-        out = real(k, prior_g, prior_a, iters)
+        out, prob = with_build(real, k, prior_g, prior_a, iters)
         rec["fiba"].append(dict(kf=int(k), frame=int(trk.map.kf_frame_id[k]), prior_g=float(prior_g),
                                 prior_a=float(prior_a), iters=int(iters), loop_gba=in_gba[0],
-                                ms=1e3 * (time.perf_counter() - t0)))
+                                ms=1e3 * (time.perf_counter() - t0), **prob))
         return out
+
+    def background(real, k):
+        out, prob = with_build(real, k)
+        rec["bg"].append(dict(kf=int(k), frame=int(trk.map.kf_frame_id[k]), **prob))
+        return out
+
+    def init(real, frame, k, prior_g, prior_a, fix_scale):
+        m, seen = trk.map, []
+        real_apply = m.apply_gravity_scale
+
+        def apply(Ryw, s, *a, **kw):
+            def dists():
+                c = -np.einsum("kji,kj->ki", m.kf_R[m.kf_valid], m.kf_t[m.kf_valid])
+                return np.concatenate([np.linalg.norm(c, axis=1), np.linalg.norm(m.lm_pos[m.lm_valid], axis=1)])
+
+            d0 = dists()
+            out = real_apply(Ryw, s, *a, **kw)
+            seen.append((float(s), float(np.abs(dists() - d0).max()) if len(d0) else 0.0, np.asarray(Ryw).tolist()))
+            return out
+
+        t0 = time.perf_counter()
+        m.apply_gravity_scale = apply
+        try:
+            ok = real(frame, k, prior_g, prior_a, fix_scale)
+        finally:
+            del m.apply_gravity_scale
+        rec["init"].append(dict(kf=int(k), frame=int(frame.frame_id), fix_scale=bool(fix_scale), ok=bool(ok),
+                                s=seen[0][0] if seen else None, rescaled=seen[0][1] if seen else None,
+                                Ryw=seen[0][2] if seen else None,
+                                ms=1e3 * (time.perf_counter() - t0)))
+        return ok
 
     def refine(real, frame, k):
         got, real_init = [], vi.inertial_init
@@ -2413,7 +2550,10 @@ def record_inertial_path(trk, vi, pose_graph, solver):
                                where="background" if trk.worker is not None else "inline"))
         return out
 
+    wrap(trk, "_build_vi_problem", build)
     wrap(trk, "_full_inertial_ba", fiba)
+    wrap(trk, "_vi_global_ba_background", background)
+    wrap(trk, "_initialize_imu", init)
     wrap(trk, "_scale_refinement", refine)
     if trk.loop_closer is not None:
         wrap(trk.loop_closer, "_essential_graph", graph)
@@ -2437,6 +2577,35 @@ def inertial_long_config(scene, n_features=VIL_FEATURES, **kw):
         camera=convert.camera_from_numpy(K[0, 0], K[1, 1], K[0, 2], K[1, 2]), width=scene.width,
         height=scene.height, sensor=Sensor.IMU_MONOCULAR, orb=OrbParams(n_features=n_features),
         imu=ImuSettings(freq=VI_IMU_HZ, Tbc=np.asarray(EUROC_T_B_C1, np.float32)), enable_loop_closing=True,
+        async_mapping=False, **kw,
+    )
+
+
+def render_stereo_inertial_long(width=SIL_SIZE[0], height=SIL_SIZE[1], n_frames=SIL_FRAMES, render=True):
+    """The stereo inertial long phase's sequence: the inertial long scene's
+    trajectory and rig (EUROC_T_B_C1) as rectified pairs of EuRoC's
+    baseline, on the ring resized to a room (SIL_RING)."""
+    return render_inertial(width, height, stereo=True, n_frames=n_frames, ring=SIL_RING, render=render,
+                           Tbc=EUROC_T_B_C1, seed=SIL_SEED, baseline=SIL_BASELINE)
+
+
+def stereo_inertial_long_config(scene, n_features=SIL_FEATURES, **kw):
+    """The stereo inertial long phase's TrackerConfig: IMU_STEREO with
+    EuRoC's rig at 200 Hz, bf = SIL_BASELINE x fx, th_depth = SIL_TH_DEPTH
+    baselines, the reference's default ladder, loop closing and the global
+    BA on, synchronous."""
+    import numpy as np
+
+    from orbslam3_cpp_fork_tpu_torch import convert
+    from orbslam3_cpp_fork_tpu_torch.ops.orb import OrbParams
+    from orbslam3_cpp_fork_tpu_torch.runtime.tracker import ImuSettings, Sensor, TrackerConfig
+
+    K = scene.K
+    return TrackerConfig(
+        camera=convert.camera_from_numpy(K[0, 0], K[1, 1], K[0, 2], K[1, 2]), width=scene.width,
+        height=scene.height, sensor=Sensor.IMU_STEREO, orb=OrbParams(n_features=n_features),
+        imu=ImuSettings(freq=VI_IMU_HZ, Tbc=np.asarray(EUROC_T_B_C1, np.float32)),
+        bf=SIL_BASELINE * float(K[0, 0]), th_depth=SIL_BASELINE * SIL_TH_DEPTH, enable_loop_closing=True,
         async_mapping=False, **kw,
     )
 
@@ -2928,9 +3097,9 @@ def phase_entry(dev):
     return cnt
 
 
-def euroc_settings(path, scene, fps, extra=""):
+def euroc_settings(path, scene, fps, extra="", n_features=N_FEATURES):
     """A File.version 1.0 settings file for a rendered pinhole camera, the
-    main path's ORB (1000 features, 8 levels)."""
+    main path's ORB (1000 features unless `n_features`, 8 levels)."""
     K = scene.K
     Path(path).write_text(
         f"""%YAML:1.0
@@ -2944,7 +3113,7 @@ Camera.width: {scene.width}
 Camera.height: {scene.height}
 Camera.fps: {fps}
 Camera.RGB: 0
-ORBextractor.nFeatures: {N_FEATURES}
+ORBextractor.nFeatures: {n_features}
 ORBextractor.scaleFactor: 1.2
 ORBextractor.nLevels: {N_LEVELS}
 ORBextractor.iniThFAST: 20
@@ -4254,6 +4423,198 @@ def phase_inertial_merge(dev, n_frames, gate):
     return cnt + cnt_b, worst, report
 
 
+def solve_line(r):
+    """A whole-chain solve's route, keyframes and stereo-row share."""
+    share = r["stereo_rows"] / r["rows"] if r.get("rows") else 0.0
+    return (f"{r.get('route')} route, {r.get('kfs')} keyframes, {r.get('stereo_rows')} of {r.get('rows')} rows "
+            f"stereo ({share:.1%})")
+
+
+def phase_stereo_inertial_long(dev, n_frames, gate):
+    """Stereo-inertial past its init on the card (module docstring, phase
+    19). Returns (describe launches, the describe kernel's angle error, a
+    report)."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from orbslam3_cpp_fork_tpu_torch.ops.orb import OrbParams
+    from orbslam3_cpp_fork_tpu_torch.optim import inertial as vi
+    from orbslam3_cpp_fork_tpu_torch.optim import pose_graph
+    from orbslam3_cpp_fork_tpu_torch.runtime.tracker import Tracker
+    from orbslam3_cpp_fork_tpu_torch.utils.evaluation import ate_rmse
+
+    scene, stamps, Rs, ts, pairs, rows = render_stereo_inertial_long(n_frames=n_frames)
+    orb_params = OrbParams(n_features=SIL_FEATURES)
+    worst = max(hold_describe(f"the stereo inertial long scene's first pair, {side} ({SIL_SIZE[0]}x{SIL_SIZE[1]}, "
+                              f"{SIL_FEATURES} features)", *frame_levels(dev, img, orb_params))
+                for side, img in zip(("left", "right"), pairs[0]))
+
+    # Part A: the synchronous tracker over every pair.
+    trk = Tracker(stereo_inertial_long_config(scene), dev)
+    rec = record_inertial_path(trk, vi, pose_graph, "optimize_pose_graph")
+    read = counted(dev)
+    stages, kf_frames, ms, n_tracked = {}, [], [], 0
+    t0 = time.perf_counter()
+    for i, (left, right) in enumerate(pairs):
+        n_kf = trk.n_kf_inserted
+        t1 = time.perf_counter()
+        n_tracked += trk.track_stereo(left, right, float(stamps[i]), imu=rows[i]) is not None
+        ms.append(1e3 * (time.perf_counter() - t1))
+        stages.setdefault(int(trk.map.imu_stage), i)
+        if trk.n_kf_inserted > n_kf:
+            kf_frames.append(i)
+    secs = time.perf_counter() - t0
+    cnt, host = read()
+    ts_est, Twc = trk.export_trajectory()
+    ate = ate_rmse(ts_est, Twc[:, :3, 3], stamps, ts)
+    pos = Twc[:, :3, 3] - Twc[:, :3, 3].mean(0)
+    n_z = abs(float(np.linalg.svd(pos)[2][2][2]))
+    loops = inertial_path_lines("stereo inertial long A", rec, Rs, ts, trk.loop_closer.events)
+    names = {1: "IMU init", 2: "VIBA1", 3: "VIBA2"}
+    f7 = [r for r in rec["fiba"] if r["loop_gba"]]
+    log("stereo inertial long A: " + "; ".join(
+        f"{names[s]} at frame {f} ({stamps[f]:.1f} s)" for s, f in sorted(stages.items()) if s in names))
+    for r in rec["init"]:
+        log(f"stereo inertial long A: IMU init at frame {r['frame']} (keyframe {r['kf']}): fix_scale {r['fix_scale']}, "
+            f"took {r['ok']}, scale applied {r['s']!r}, largest change of a distance from the origin across it "
+            f"{r['rescaled'] if r['rescaled'] is None else format(r['rescaled'], '.2e')} m, {r['ms']:.1f} ms "
+            "(host clock, its FullInertialBA included)")
+    for r in rec["fiba"]:
+        log(f"stereo inertial long A: FullInertialBA at frame {r['frame']} (priors g/a {r['prior_g']:g}/"
+            f"{r['prior_a']:g}, {r['iters']} iterations{', after a loop' if r['loop_gba'] else ''}): "
+            f"{solve_line(r)}; {r['ms']:.1f} ms (host clock)")
+    for j, ev in enumerate(loops):
+        g = rec["graph"][j] if j < len(rec["graph"]) else {}
+        log(f"stereo inertial long A: loop {j}: keyframes {ev['kf']} -> {ev['match']}, {g.get('mode')}, optical axes "
+            f"{revisit(Rs, ts, ev)[1]:.1f} deg apart; host ms: essential graph {g.get('ms', float('nan')):.1f}, "
+            f"FullInertialBA(7) {f7[j]['ms'] if j < len(f7) else float('nan'):.1f}")
+    viba2 = stages.get(3)
+    ref_at = next((j for j, f in enumerate(kf_frames) if f >= SIL_JAX_VIBA2_FRAME), len(kf_frames))
+    viba2_kfs = abs(kf_frames.index(viba2) - ref_at) if viba2 in kf_frames else None
+    bound = max(SIL_JAX_ATE_M, SIL_PORT_ATE_M) + TOL_LOOP_ATE_M
+    n = len(pairs)
+    report = dict(pairs=n, tracked=n_tracked, stages={names[s]: f for s, f in stages.items() if s in names},
+                  inits=rec["init"], fiba=rec["fiba"], refinements=rec["refine"], graphs=rec["graph"],
+                  gbas=rec["gba"], loops=[dict(kf=e["kf"], match=e["match"], kf_frame=e["kf_frame"],
+                                               match_frame=e["match_frame"], deg=revisit(Rs, ts, e)[1]) for e in loops],
+                  ate=ate.rmse, ate_scaled=ate.rmse_scaled, scale=ate.scale, n_z=n_z, launches_a=cnt, seconds_a=secs,
+                  ms_median=float(np.median(ms)), ms_p99=float(np.percentile(ms, 99)))
+    log(f"stereo inertial long A (IMU_STEREO on EuRoC's T_b_c1 and baseline, {n} pairs at {SIL_SIZE[0]}x{SIL_SIZE[1]}, "
+        f"{SIL_FEATURES} features, synchronous, loop closing on): state {trk.state.name}, IMU stage "
+        f"{trk.map.imu_stage}, tracked {n_tracked}/{n}; keyframes {trk.map.n_keyframes()}, landmarks "
+        f"{trk.map.n_landmarks()}; VIBA2 at frame {viba2}, the reference's CPU run at {SIL_JAX_VIBA2_FRAME} "
+        f"({viba2_kfs} keyframes apart); ScaleRefinement calls {len(rec['refine'])}; loops {len(loops)}, "
+        f"FullInertialBA(7) after them {len(f7)}; unscaled ATE {ate.rmse:.6f} m (scale {ate.scale:.4f}, scale-aligned "
+        f"{ate.rmse_scaled:.6f} m) over {ate.n_pairs} poses, bound max({SIL_JAX_ATE_M:.6f}, {SIL_PORT_ATE_M:.6f}) + "
+        f"{TOL_LOOP_ATE_M} = {bound:.6f} m; plane normal |n_z| {n_z:.4f}; {np.median(ms):.1f} ms a pair median, "
+        f"{np.percentile(ms, 99):.1f} ms p99, {secs:.1f} s in all (host clock); describe launches {cnt}; {card_line()}")
+    if cnt != 2 * n or host != 2 * n:
+        fail(f"stereo inertial long A: orb_describe ran {cnt} times on the card ({host} by the wrapper) for {n} pairs")
+    if rec["refine"]:
+        fail(f"stereo inertial long A: ScaleRefinement called {len(rec['refine'])} times (IMU_MONOCULAR only)")
+    for g in rec["graph"]:
+        if g["mode"] != "4dof" or not (g["gravity_moved"] < VIL_GRAVITY_TOL and g["scale_moved"] < VIL_GRAVITY_TOL):
+            fail(f"stereo inertial long A: an essential graph in mode {g['mode']} moved a body gravity direction by "
+                 f"{g['gravity_moved']:.3g} and a vertex scale by {g['scale_moved']:.3g} (4dof, < {VIL_GRAVITY_TOL})")
+    if (len(rec["gba"]) != len(loops) or any(b["kind"] != "inertial" for b in rec["gba"])
+            or [(r["iters"], r["prior_g"], r["prior_a"]) for r in f7] != [(7, 0.0, 0.0)] * len(loops)):
+        fail(f"stereo inertial long A: global BAs after the {len(loops)} loops: {[b['kind'] for b in rec['gba']]}, "
+             f"FullInertialBA(7) {len(f7)} (one each required)")
+    took = [r for r in rec["init"] if r["ok"]]
+    if len(took) != 1 or not took[0]["fix_scale"] or took[0]["s"] != 1.0:
+        fail(f"stereo inertial long A: IMU inits {rec['init']} (one, with fix_scale and scale exactly 1, required)")
+    if gate:
+        if trk.state.name != "OK" or not n_tracked > VIL_MIN_TRACKED * n:
+            fail(f"stereo inertial long A: state {trk.state.name}, {n_tracked} of {n} tracked (> {VIL_MIN_TRACKED} "
+                 "required)")
+        if trk.map.imu_stage != 3 or viba2_kfs is None or viba2_kfs > 1:
+            fail(f"stereo inertial long A: IMU stage {trk.map.imu_stage}, VIBA2 at frame {viba2}, {viba2_kfs} keyframes "
+                 f"from the reference's frame {SIL_JAX_VIBA2_FRAME} (within one required)")
+        if not loops or any(revisit(Rs, ts, e)[1] > LOOP_REVISIT_DEG for e in loops):
+            fail(f"stereo inertial long A: loops {[(e['kf_frame'], e['match_frame']) for e in loops]}: none, or not a "
+                 f"true revisit (optical axes within {LOOP_REVISIT_DEG} deg required)")
+        if not abs(ate.scale - 1.0) < STEREO_SCALE_TOL or not n_z > VI_GRAVITY_NZ:
+            fail(f"stereo inertial long A: scale {ate.scale:.4f} (|s - 1| < {STEREO_SCALE_TOL}), plane normal |n_z| "
+                 f"{n_z:.4f} (> {VI_GRAVITY_NZ})")
+        if not ate.rmse <= bound:
+            fail(f"stereo inertial long A: unscaled ATE {ate.rmse:.6f} m > {bound:.6f} m")
+
+    # Part B: the stereo_inertial_euroc driver in the default mode on an
+    # EuRoC tree of the same pairs, settings in the File.version 1.0 form
+    # with EuRoC's bf, ThDepth and IMU.T_b_c1. Per map, as in phase 17's B.
+    k = min(SIL_DRIVER_PAIRS, n)
+    with tempfile.TemporaryDirectory(dir=os.environ.get("TMPDIR")) as tmp:
+        root = Path(tmp)
+        write_euroc_tree(root, "SIL", stamps[:k], pairs[:k], imu_rows=np.concatenate(rows[1:k]))
+        euroc_settings(root / "sil.yaml", scene, VI_FPS,
+                       f"Camera.bf: {SIL_BASELINE * float(scene.K[0, 0])!r}\nStereo.ThDepth: {SIL_TH_DEPTH!r}\n"
+                       + imu_yaml(EUROC_T_B_C1), n_features=SIL_FEATURES)
+        spied, recs, top = [], [], dict(stage=0, frame=None, n=0)
+
+        def spy(system):
+            trk_s = system.tracker
+            spied.append(spy_dead_reckoned(trk_s))
+            recs.append(record_inertial_path(trk_s, vi, pose_graph, "optimize_pose_graph"))
+            real = system.track_stereo
+
+            def track(left, right, t, imu=None):
+                out = real(left, right, t, imu=imu)
+                if trk_s.map.imu_stage > top["stage"]:
+                    top.update(stage=int(trk_s.map.imu_stage), frame=top["n"])
+                top["n"] += 1
+                return out
+
+            system.track_stereo = track
+
+        read = counted(dev)
+        t0 = time.perf_counter()
+        system = run_driver("stereo_inertial_euroc", [str(root / "sil.yaml"), str(root), "SIL", "--traj",
+                                                      str(root / "t.txt"), "--kf-traj", str(root / "kf.txt"),
+                                                      "--log-level", "WARNING", "--device", str(dev)], spy=spy)
+        secs_b = time.perf_counter() - t0
+        cnt_b, host_b = read()
+        ts_e, _, tracked = driver_poses("stereo inertial long B", root / "t.txt", k, 1.0 / VI_FPS, spied[0])
+    trk_b = system.tracker
+    ts_x, Twc_x = trk_b.export_trajectory()
+    keep = np.asarray([int(round(t * VI_FPS)) not in spied[0] for t in ts_x], bool)
+    per_map = per_map_ates(trk_b, ts_x, Twc_x, keep, stamps[:k], ts[:k])
+    loops_b = inertial_path_lines("stereo inertial long B", recs[0], Rs, ts, trk_b.loop_closer.events)
+    for r in recs[0]["bg"]:
+        log(f"stereo inertial long B: background inertial global BA at keyframe {r['kf']} (frame {r['frame']}): "
+            f"{solve_line(r)}")
+    bound_b = ASYNC_ATE_FACTOR * ate.rmse + ASYNC_ATE_SLACK_M
+    report.update(pairs_b=k, exported_b=len(ts_e), tracked_b=int(tracked.sum()), stage_b=top["stage"],
+                  stage_b_frame=top["frame"], maps_b={m: dict(ate=r.rmse, scale=r.scale, n=r.n_pairs)
+                                                      for m, r in per_map.items()},
+                  lost_b=int(trk_b.n_lost_events), loops_b=len(loops_b), background_gbas_b=recs[0]["bg"],
+                  launches_b=cnt_b, seconds_b=secs_b)
+    log(f"stereo inertial long B (stereo_inertial_euroc, EuRoC's bf, ThDepth and IMU.T_b_c1, default mode, {k} pairs): "
+        f"{len(ts_e)} poses exported, {int(tracked.sum())} tracked while OK; loss events {trk_b.n_lost_events}, maps "
+        f"{len(trk_b.atlas.maps)}; the highest IMU stage {top['stage']} (first at pair {top['frame']}; the reference "
+        f"driver's lowest in three CPU runs: {SIL_JAX_DRIVER_STAGE}); per map with >= 10 tracked poses, unscaled ATE "
+        "and scale: " + ", ".join(f"map {m} {r.rmse:.6f} m, {r.scale:.4f} over {r.n_pairs}" for m, r in per_map.items())
+        + f"; bound {ASYNC_ATE_FACTOR} x {ate.rmse:.6f} + {ASYNC_ATE_SLACK_M} = {bound_b:.6f} m; loops on the loop "
+        f"thread {len(loops_b)} (the reference driver's fewest in three CPU runs: {SIL_JAX_DRIVER_LOOPS}); background "
+        f"inertial global BAs {len(recs[0]['bg'])}; {secs_b:.1f} s; describe launches {cnt_b}")
+    if cnt_b != 2 * k or host_b != 2 * k:
+        fail(f"stereo inertial long B: orb_describe ran {cnt_b} times on the card ({host_b} by the wrapper) for {k} "
+             "pairs")
+    if gate:
+        if top["stage"] < SIL_JAX_DRIVER_STAGE:
+            fail(f"stereo inertial long B: the highest IMU stage {top['stage']} (>= {SIL_JAX_DRIVER_STAGE} required)")
+        if not per_map:
+            fail("stereo inertial long B: no map holds 10 poses tracked while OK")
+        for m, r in per_map.items():
+            if not abs(r.scale - 1.0) < STEREO_SCALE_TOL or not r.rmse <= bound_b:
+                fail(f"stereo inertial long B: map {m}: scale {r.scale:.4f} (|scale - 1| < {STEREO_SCALE_TOL} "
+                     f"required), unscaled ATE of the tracked poses {r.rmse:.6f} m (<= {bound_b:.6f} m required)")
+        if len(loops_b) < SIL_JAX_DRIVER_LOOPS:
+            fail(f"stereo inertial long B: {len(loops_b)} loops (>= {SIL_JAX_DRIVER_LOOPS} required)")
+    return cnt + cnt_b, worst, report
+
+
 def rot_err(Ra, Rb):
     """Largest angle (rad) between corresponding rotations, in float64 from
     the chord ||Ra - Rb||_F = 2 sqrt(2) sin(angle / 2) (arccos of the trace
@@ -4572,21 +4933,29 @@ def inertial_long_part(dev, frames, started=None):
                                       "stereo_describe_err": stereo_err, "stereo_ate": stereo_ate}}))
 
 
-def inertial_merge_part(dev, frames, started=None):
-    """The inertial merge phase: run in a third process of its own, beside
-    the other phases; the last line of output is its record."""
+def inertial_merge_part(dev, frames):
+    """The inertial merge phase (in the third child process); returns its
+    record."""
     gate = frames == FRAMES
     t0 = time.perf_counter()
     launches, err, report = phase_inertial_merge(dev, VIM_FRAMES if gate else min(frames, VIM_FRAMES), gate)
     log(f"smoke: inertial merge phase {time.perf_counter() - t0:.1f} s")
-    if started is not None:
-        log(f"smoke: this process (inertial merge) {time.perf_counter() - started:.1f} s from its start")
-    log(json.dumps({"inertial_merge": {"launches": launches, "describe_err": err, "report": report}}))
+    return {"inertial_merge": {"launches": launches, "describe_err": err, "report": report}}
+
+
+def stereo_inertial_part(dev, frames):
+    """The stereo inertial long phase (in the third child process, after
+    the inertial merge phase); returns its record."""
+    gate = frames == FRAMES
+    t0 = time.perf_counter()
+    launches, err, report = phase_stereo_inertial_long(dev, SIL_FRAMES if gate else min(frames, SIL_FRAMES), gate)
+    log(f"smoke: stereo inertial long phase {time.perf_counter() - t0:.1f} s")
+    return {"stereo_inertial": {"launches": launches, "describe_err": err, "report": report}}
 
 
 def start_parallel_part(frames, part="--parallel-part", extra=()):
-    """Start a part (`parallel_part`, `inertial_long_part` or
-    `inertial_merge_part`) in a child
+    """Start a part (`parallel_part`, `inertial_long_part`,
+    `inertial_merge_part`, `stereo_inertial_part`) in a child
     process (output in temporary files; killed at exit if still running)."""
     import atexit
     import tempfile
@@ -4604,9 +4973,10 @@ def start_parallel_part(frames, part="--parallel-part", extra=()):
     return proc, out, err, time.perf_counter()
 
 
-def collect_parallel_part(child, deadline, key="parallel", name="the drivers and long phases"):
+def collect_parallel_part(child, deadline, key="parallel", name="the drivers and long phases", whole=False):
     """Wait for the child until `deadline` (perf_counter), print its output
-    and its wall time and return its record; its failure fails the smoke."""
+    and its wall time and return its record (`key`'s, or with `whole` every
+    key of its last line); its failure fails the smoke."""
     proc, out, err, started = child
     try:
         rc = proc.wait(timeout=max(1.0, deadline - time.perf_counter()))
@@ -4623,7 +4993,7 @@ def collect_parallel_part(child, deadline, key="parallel", name="the drivers and
     if rc != 0 or not lines or not lines[-1].startswith('{"' + key + '"'):
         sys.stderr.write(errs[-8000:])
         fail(f"the process of {name} ended with {'a timeout' if rc is None else f'exit {rc}'}")
-    return json.loads(lines[-1])[key]
+    return json.loads(lines[-1]) if whole else json.loads(lines[-1])[key]
 
 
 def main(argv=None) -> int:
@@ -4640,6 +5010,9 @@ def main(argv=None) -> int:
                     help="run only the inertial long phase (the smoke runs it so, in a second child process)")
     ap.add_argument("--inertial-merge-part", action="store_true",
                     help="run only the inertial merge phase (the smoke runs it so, in a third child process)")
+    ap.add_argument("--stereo-inertial-part", action="store_true",
+                    help="run only the stereo inertial long phase (the smoke runs it in its third child process, "
+                         "after the inertial merge phase)")
     ap.add_argument("--loop-scale-probe", action="store_true",
                     help="run only loop A and loop B plain and at forced loop scales (ROADMAP R25), then exit")
     ap.add_argument("--long-state", metavar="PATH",
@@ -4661,16 +5034,27 @@ def main(argv=None) -> int:
     from orbslam3_cpp_fork_tpu_torch.ops.orb import OrbParams
 
     t_smoke = time.perf_counter()
-    if args.parallel_part or args.inertial_long_part or args.inertial_merge_part:
+    if args.parallel_part or args.inertial_long_part or args.inertial_merge_part or args.stereo_inertial_part:
         dev = get_device()
-        for name in _kernels.build_all():  # built already by the parent: loaded
+        for name in _kernels.build_all():  # built already by the parent, or built here when run alone: loaded
             _kernels.load(name)
         if args.parallel_part:
             parallel_part(dev, args.frames, args.long_state, t_smoke)
         elif args.inertial_long_part:
             inertial_long_part(dev, args.frames, t_smoke)
         else:
-            inertial_merge_part(dev, args.frames, t_smoke)
+            # The third child runs both phases in turn: a fifth process
+            # beside the others doubled their host time a frame (PERF.md,
+            # Findings).
+            record, names = {}, []
+            if args.inertial_merge_part:
+                record.update(inertial_merge_part(dev, args.frames))
+                names.append("inertial merge")
+            if args.stereo_inertial_part:
+                record.update(stereo_inertial_part(dev, args.frames))
+                names.append("stereo inertial long")
+            log(f"smoke: this process ({' and '.join(names)}) {time.perf_counter() - t_smoke:.1f} s from its start")
+            log(json.dumps(record))
         return 0
     card = card_line()
     log(f"device: {card}")
@@ -4692,7 +5076,7 @@ def main(argv=None) -> int:
 
     child = start_parallel_part(args.frames, extra=["--long-state", args.long_state] if args.long_state else [])
     child_vil = start_parallel_part(args.frames, "--inertial-long-part")
-    child_vim = start_parallel_part(args.frames, "--inertial-merge-part")
+    child_vim = start_parallel_part(args.frames, "--inertial-merge-part", ["--stereo-inertial-part"])
     laps = [time.perf_counter()]
 
     def lap(name):
@@ -4731,7 +5115,9 @@ def main(argv=None) -> int:
     lap("scale")
     log(f"smoke: the phases of this process ended at {time.perf_counter() - t_smoke:.1f} s")
     par = collect_parallel_part(child, t_smoke + PARALLEL_DEADLINE_S, name="the drivers, long and merge phases")
-    vim = collect_parallel_part(child_vim, t_smoke + PARALLEL_DEADLINE_S, "inertial_merge", "the inertial merge phase")
+    vim = collect_parallel_part(child_vim, t_smoke + PARALLEL_DEADLINE_S, "inertial_merge",
+                                "the inertial merge and stereo inertial long phases", whole=True)
+    vim, sil = vim["inertial_merge"], vim["stereo_inertial"]
     if args.compare_routes:
         phase_compare_routes(dev, make, frames)
     if args.profile:
@@ -4756,10 +5142,11 @@ def main(argv=None) -> int:
             # second: two a stereo pair and one an RGB-D frame of the stereo
             # phase, one a frame of the inertial long phase's parts A and B;
             # in a third: one a frame of the inertial merge phase's parts A
-            # and B.
+            # and B, then two a pair of the stereo inertial long phase's
+            # parts A and B.
             "launches": describe_launches + slam_launches + async_launches + loop_launches + vil["launches_stereo"]
             + vil["launches_rgbd"] + par["launches_merge"] + inertial_launches + entry_launches + shell_launches
-            + par["launches_drivers"] + par["launches_long"] + vil["launches"] + vim["launches"],
+            + par["launches_drivers"] + par["launches_long"] + vil["launches"] + vim["launches"] + sil["launches"],
             "launches_localization": describe_launches, "launches_slam": slam_launches,
             "launches_async": async_launches, "launches_loop": loop_launches,
             "launches_stereo": vil["launches_stereo"], "launches_rgbd": vil["launches_rgbd"],
@@ -4767,8 +5154,10 @@ def main(argv=None) -> int:
             "launches_entry": entry_launches, "launches_shell": shell_launches,
             "launches_drivers": par["launches_drivers"], "launches_long": par["launches_long"],
             "launches_inertial_long": vil["launches"], "launches_inertial_merge": vim["launches"],
+            "launches_stereo_inertial_long": sil["launches"],
             "max_abs_err": max(describe["max_abs_err"], vil["stereo_describe_err"], par["merge_describe_err"],
-                               inertial_describe_err, par["describe_err"], vil["describe_err"], vim["describe_err"]),
+                               inertial_describe_err, par["describe_err"], vil["describe_err"], vim["describe_err"],
+                               sil["describe_err"]),
             "ms": describe["ms"], "plain_ms": describe["plain_ms"],
             "bound_ms": describe["bound_ms"], "bound_by": describe["bound_by"],
             # No single PyTorch call gathers windows, sums moments and

@@ -1397,10 +1397,16 @@ class Tracker:
     def _check_replaced_in_last_frame(self):
         """Re-point last-frame bindings at fusion survivors
         (Tracking::CheckReplacedInLastFrame)."""
-        if self.last is None or self.last.lm_idx is None:
+        if self.last is not None:
+            self._resolve_bindings(self.last)
+
+    def _resolve_bindings(self, frame: FrameData):
+        """Re-point a frame's bindings at fusion survivors and drop those to
+        culled landmarks, under the map lock."""
+        if frame.lm_idx is None:
             return
         m = self.map
-        idx = self.last.lm_idx
+        idx = frame.lm_idx
         bound = np.nonzero(idx >= 0)[0]
         if len(bound) == 0:
             return
@@ -2318,6 +2324,10 @@ class Tracker:
             self._set_lost(frame)
             return
 
+        # These stages read the map without its lock, and the loop thread can
+        # fuse or cull the frame's landmarks meanwhile (ORB-SLAM3 holds
+        # mMutexMapUpdate over a frame's tracking; ROADMAP R28).
+        self._resolve_bindings(frame)
         self._finish_tracked_frame(frame, n_in)
 
     def _set_lost(self, frame: FrameData):
